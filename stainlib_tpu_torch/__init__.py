@@ -1,0 +1,52 @@
+"""stainlib_tpu_torch — the PyTorch/CUDA port of the JAX package beside it.
+
+Same module paths and function names as the JAX package, which stays the
+reference every module here is tested against. This first slice covers
+the Macenko normalize main path: the functional ops, Macenko extraction,
+extractive fit/transform, the drop-in object API, and the fused per-tile
+Macenko kernel (``kernels/macenko_fused.py``), hand-written in CUDA C++
+for Hopper (``kernels/csrc/``) and built with ``nvcc`` at first use.
+
+Importing the package imports ``torch`` only: never jax, never
+the JAX package, and it builds nothing.
+
+Precision: importing the package sets
+``torch.backends.cuda.matmul.allow_tf32 = False`` and
+``torch.backends.cudnn.allow_tf32 = False``, so every float32 contraction
+on the card runs in full float32: the counterpart of
+``precision=lax.Precision.HIGHEST`` in the JAX package's
+``ops/colorspace.py:31-37``.
+"""
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from stainlib_tpu_torch.api import (  # noqa: E402
+    ExtractiveStainNormalizer,
+    LuminosityStandardizer,
+    LuminosityThresholdTissueLocator,
+    MacenkoStainExtractor,
+    get_concentrations,
+)
+from stainlib_tpu_torch.exceptions import (  # noqa: E402
+    DigitalPathologyAugmentationError,
+    DigitalPathologyError,
+    InvalidRangeError,
+    TissueMaskException,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "ExtractiveStainNormalizer",
+    "MacenkoStainExtractor",
+    "LuminosityStandardizer",
+    "LuminosityThresholdTissueLocator",
+    "get_concentrations",
+    "DigitalPathologyError",
+    "DigitalPathologyAugmentationError",
+    "InvalidRangeError",
+    "TissueMaskException",
+]

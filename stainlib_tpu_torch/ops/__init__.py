@@ -1,0 +1,16 @@
+from stainlib_tpu_torch.ops.colorspace import (
+    lab_luminance,
+    lab_to_rgb,
+    rgb_to_lab,
+    rgb_to_od,
+    to_uint8,
+)
+from stainlib_tpu_torch.ops.lasso import get_concentrations, nonneg_lasso_k2
+from stainlib_tpu_torch.ops.linalg3 import eigh3x3
+from stainlib_tpu_torch.ops.percentile import masked_percentile, percentile
+from stainlib_tpu_torch.ops.tissue import (
+    TissueMask,
+    luminosity_standardize,
+    standardize_brightness,
+    tissue_mask,
+)

@@ -1,0 +1,55 @@
+"""Exact non-negative K=2 lasso concentrations.
+
+Port of the JAX package's ``ops/lasso.py:29-89``, which replaces the
+reference's ``spams.lasso(X, D, mode=2, lambda1, pos=True)``
+(``stainlib/utils/stain_utils.py:69-78``) with the closed-form active-set
+solution of ``min_{c >= 0} 0.5 ||x - D c||^2 + lambda ||c||_1`` for two
+stains: the same global optimum, branch-free and deterministic.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from stainlib_tpu_torch.ops.colorspace import rgb_to_od
+
+
+def nonneg_lasso_k2(od, stain_matrix, regularizer: float = 0.01):
+    """Exact concentrations (..., 2) for optical densities (..., 3) against
+    row-normalized stain vectors (..., 2, 3) that broadcast with ``od``'s
+    batch axes."""
+    od = torch.as_tensor(od).to(torch.float32)
+    M = torch.as_tensor(stain_matrix, device=od.device).to(torch.float32)
+    g11 = (M[..., 0, :] * M[..., 0, :]).sum(-1)
+    g22 = (M[..., 1, :] * M[..., 1, :]).sum(-1)
+    g12 = (M[..., 0, :] * M[..., 1, :]).sum(-1)
+    det = torch.clamp_min(g11 * g22 - g12 * g12, 1e-12)
+
+    b1 = (od * M[..., 0, :]).sum(-1) - regularizer
+    b2 = (od * M[..., 1, :]).sum(-1) - regularizer
+
+    # Both stains active: c = G^{-1} b.
+    c1_full = (g22 * b1 - g12 * b2) / det
+    c2_full = (g11 * b2 - g12 * b1) / det
+    ok_full = (c1_full >= 0.0) & (c2_full >= 0.0)
+    # One stain active; KKT for the zero coordinate.
+    c1_only = torch.clamp_min(b1, 0.0) / torch.clamp_min(g11, 1e-12)
+    ok_1 = (b1 >= 0.0) & (g12 * c1_only - b2 >= 0.0)
+    c2_only = torch.clamp_min(b2, 0.0) / torch.clamp_min(g22, 1e-12)
+    ok_2 = (b2 >= 0.0) & (g12 * c2_only - b1 >= 0.0)
+
+    c1 = torch.where(ok_full, c1_full, torch.where(ok_1, c1_only, 0.0))
+    c2 = torch.where(ok_full, c2_full,
+                     torch.where(~ok_1 & ok_2, c2_only, 0.0))
+    return torch.stack([c1, c2], dim=-1)
+
+
+def get_concentrations(rgb, stain_matrix, regularizer: float = 0.01):
+    """RGB [0,255] (..., H, W, 3) -> concentrations (..., H, W, 2) over all
+    pixels (no tissue mask, like ``stain_utils.py:69-78``)."""
+    od = rgb_to_od(rgb)
+    stain_matrix = torch.as_tensor(stain_matrix, device=od.device)
+    if stain_matrix.ndim > 2:
+        # Per-image stain matrices: align (..., 2, 3) with (..., H, W, 3).
+        stain_matrix = stain_matrix[..., None, None, :, :]
+    return nonneg_lasso_k2(od, stain_matrix, regularizer)

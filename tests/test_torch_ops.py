@@ -1,0 +1,143 @@
+"""The port's functional ops against the JAX package's, on the CPU.
+
+Same numpy inputs on both sides. Tolerances: float32 atol 1e-5 scaled by
+the field's magnitude (LAB channels reach ~100 and RGB 255, where one ulp
+is ~1e-5), relative 1e-5 for percentiles, bitwise for masks and counts.
+"""
+
+import importlib
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from tests.synth import he_batch  # noqa: E402
+
+J = {n: importlib.import_module(f"stainlib_tpu.ops.{n}")
+     for n in ("colorspace", "tissue", "percentile", "linalg3", "lasso")}
+T = {n: importlib.import_module(f"stainlib_tpu_torch.ops.{n}")
+     for n in ("colorspace", "tissue", "percentile", "linalg3", "lasso")}
+
+
+def _images():
+    rng = np.random.default_rng(0)
+    return [he_batch(2, 32, 48, seed=3),
+            rng.integers(0, 256, (2, 32, 48, 3)).astype(np.uint8)]
+
+
+def _close(want, got, rel=1e-5):
+    want, got = np.asarray(want), np.asarray(got)
+    assert want.shape == got.shape, (want.shape, got.shape)
+    atol = rel * max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("name", ["rgb_to_od", "lab_luminance", "rgb_to_lab"])
+def test_colorspace_forward(name):
+    for img in _images():
+        want = getattr(J["colorspace"], name)(jnp.asarray(img))
+        got = getattr(T["colorspace"], name)(torch.from_numpy(img))
+        _close(want, got.numpy())
+
+
+def test_lab_to_rgb_and_to_uint8():
+    img = _images()[1]
+    lab = np.array(J["colorspace"].rgb_to_lab(jnp.asarray(img)))
+    want = np.asarray(J["colorspace"].lab_to_rgb(jnp.asarray(lab)))
+    got = T["colorspace"].lab_to_rgb(torch.from_numpy(lab)).numpy()
+    _close(want, got)
+    x = np.linspace(-20, 280, 301, dtype=np.float32)
+    assert (np.asarray(J["colorspace"].to_uint8(jnp.asarray(x)))
+            == T["colorspace"].to_uint8(torch.from_numpy(x)).numpy()).all()
+
+
+def test_tissue_mask_bitwise():
+    for img in _images():
+        want = J["tissue"].tissue_mask(jnp.asarray(img))
+        got = T["tissue"].tissue_mask(torch.from_numpy(img))
+        assert (np.asarray(want.mask) == got.mask.numpy()).all()
+        assert (np.asarray(want.count) == got.count.numpy()).all()
+        assert got.count.dtype == torch.int32
+
+
+def test_luminosity_and_brightness_standardize():
+    img = _images()[0]
+    for name in ("luminosity_standardize", "standardize_brightness"):
+        want = getattr(J["tissue"], name)(jnp.asarray(img))
+        got = getattr(T["tissue"], name)(torch.from_numpy(img))
+        _close(want, got.numpy())
+
+
+@pytest.mark.parametrize("q", [99.0, [1.0, 50.0, 99.0]])
+def test_percentile_and_masked_percentile_sort_path(q):
+    rng = np.random.default_rng(1)
+    v = rng.normal(size=(3, 1000)).astype(np.float32)
+    m = rng.random((3, 1000)) < 0.5
+    qj = jnp.asarray(q, jnp.float32)
+    for axis in (-1, None, (-1,)):
+        want = J["percentile"].percentile(jnp.asarray(v), qj, axis=axis)
+        got = T["percentile"].percentile(torch.from_numpy(v), q, axis=axis)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
+    want = J["percentile"].masked_percentile(jnp.asarray(v), jnp.asarray(m),
+                                             qj)
+    got = T["percentile"].masked_percentile(torch.from_numpy(v),
+                                            torch.from_numpy(m), q)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
+    # An empty mask on the sort path: NaN, as in the JAX package.
+    empty = T["percentile"].masked_percentile(
+        torch.from_numpy(v), torch.zeros(3, 1000, dtype=torch.bool), q)
+    assert np.isnan(np.asarray(J["percentile"].masked_percentile(
+        jnp.asarray(v), jnp.zeros((3, 1000), bool), qj))).all()
+    assert torch.isnan(empty).all()
+
+
+def test_percentile_bisect_path_and_empty_mask():
+    """A 600x600 axis (> 512^2) takes count bisection on both sides."""
+    rng = np.random.default_rng(2)
+    v = (rng.random((2, 600 * 600)) ** 3).astype(np.float32)
+    m = rng.random((2, 600 * 600)) < 0.3
+    m[1] = False
+    q = [1.0, 99.0]
+    want = np.asarray(J["percentile"].masked_percentile(
+        jnp.asarray(v), jnp.asarray(m), jnp.asarray(q, jnp.float32)))
+    got = T["percentile"].masked_percentile(
+        torch.from_numpy(v), torch.from_numpy(m), q).numpy()
+    np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=1e-5)
+    assert np.isposinf(got[:, 1]).all() and np.isposinf(want[:, 1]).all()
+    want = np.asarray(J["percentile"].percentile(jnp.asarray(v), 99.0,
+                                                 axis=-1))
+    got = T["percentile"].percentile(torch.from_numpy(v), 99.0, axis=-1)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+    np.testing.assert_allclose(want, np.percentile(v, 99.0, axis=-1),
+                               rtol=1e-5)
+
+
+def test_eigh3x3_values_and_sign_fixed_vectors():
+    rng = np.random.default_rng(3)
+    A = rng.normal(size=(64, 3, 3)).astype(np.float32)
+    A = A @ A.transpose(0, 2, 1)
+    wj, Vj = (np.asarray(x) for x in J["linalg3"].eigh3x3(jnp.asarray(A)))
+    wt, Vt = (x.numpy() for x in T["linalg3"].eigh3x3(torch.from_numpy(A)))
+    # Scale-relative: the solve normalizes by max|A| first.
+    scale = np.abs(A).max(axis=(1, 2))[:, None]
+    np.testing.assert_allclose(wt / scale, wj / scale, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(Vt, Vj, rtol=0, atol=1e-5)
+    # Columns are eigenvectors with the largest-|.| component positive.
+    lead = np.take_along_axis(Vt, np.abs(Vt).argmax(1)[:, None, :], 1)
+    assert (lead > 0).all()
+
+
+def test_nonneg_lasso_k2():
+    rng = np.random.default_rng(4)
+    od = (rng.random((500, 3)) * 2).astype(np.float32)
+    M = np.array([[0.65, 0.70, 0.29], [0.07, 0.99, 0.11]], np.float32)
+    M /= np.linalg.norm(M, axis=1, keepdims=True)
+    want = np.asarray(J["lasso"].nonneg_lasso_k2(jnp.asarray(od),
+                                                 jnp.asarray(M)))
+    got = T["lasso"].nonneg_lasso_k2(torch.from_numpy(od),
+                                     torch.from_numpy(M)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    assert (got >= 0).all() and (got == 0).any()
