@@ -1,14 +1,22 @@
-"""Smoke run of the PyTorch/CUDA port's main path on one GPU.
+"""Smoke run of the PyTorch/CUDA port's main paths on one GPU.
 
     python3 chip_smoke.py
 
-Drives ``stainlib_tpu_torch``'s Macenko normalize path on the card: the
-drop-in ``ExtractiveStainNormalizer("macenko")`` and the batched
-``macenko_normalize`` entry on 256x256 uint8 H&E tiles (random synthetic
-tiles from a seed). It builds the hand-written CUDA kernel from the sources
-in the checkout, holds it against its plain PyTorch version and against the
-functional path, checks that two runs give identical bytes, and times the
-kernel against the plain version with CUDA events.
+Drives ``stainlib_tpu_torch``'s two normalize paths on the card, on
+256x256 uint8 H&E tiles (random synthetic tiles from a seed):
+
+* Macenko: the drop-in ``ExtractiveStainNormalizer("macenko")`` and the
+  batched ``macenko_normalize`` entry (kernel K1);
+* Vahadane: the drop-in ``ExtractiveStainNormalizer("vahadane")``, the
+  batched ``vahadane_normalize`` entry (kernel K2) and the two-kernel
+  ``vahadane_normalize_planar_2k`` (dictionary kernel K8, then the
+  fixed-matrix apply kernel K9).
+
+It builds the hand-written CUDA kernels from the sources in the checkout,
+counts each kernel's launches over its path, holds every kernel against
+its plain PyTorch version and against the functional path, checks that two
+runs give identical bytes, and times each kernel against its plain version
+with CUDA events.
 
 Phases print one line each. Before the last line it prints the card's name
 and power limit (``nvidia-smi``) and a JSON object describing each kernel;
@@ -21,6 +29,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import re
 import subprocess
 import sys
 import time
@@ -32,7 +41,8 @@ import torch
 SEED = 20261016
 B, SIDE = 256, 256  # the batched main path: 256 tiles of 256x256
 B_LARGE, SIDE_LARGE = 16, 512
-FAST = dict(fit_stride=2, n_bisect=10)  # the API's knobs at >= 256^2
+FAST = dict(fit_stride=2, n_bisect=10)  # the API's Macenko knobs at >= 256^2
+VFAST = dict(fit_stride=2, num_iters=8, n_bisect=10)  # ... and Vahadane's
 REPS = 15
 
 
@@ -81,6 +91,34 @@ def time_ms(fn, reps=REPS):
     return float(np.median(times))
 
 
+def time_pair(kernel, plain):
+    """Kernel and plain version in turns (plain, kernel, kernel, plain);
+    returns ((kernel a, kernel b), (plain a, plain b)) in ms."""
+    pa = time_ms(plain)
+    ka = time_ms(kernel)
+    kb = time_ms(kernel)
+    pb = time_ms(plain)
+    return (ka, kb), (pa, pb)
+
+
+def ptxas_summary(build_log: str) -> str:
+    """'kernel: N regs, spill S/L B' for each kernel ptxas reported."""
+    out, name = [], None
+    for ln in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            k = re.search(r"\d+([a-z_]+_kernel)", m.group(1))
+            name = k.group(1) if k else m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            spill = f"{m.group(1)}/{m.group(2)}"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} regs, spill {spill} B")
+            name = None
+    return "; ".join(out)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to PyTorch", file=sys.stderr)
@@ -91,8 +129,11 @@ def main() -> int:
 
 def run(dev) -> int:
     import stainlib_tpu_torch as st
+    from stainlib_tpu_torch.extraction.vahadane import stain_matrix_vahadane
     from stainlib_tpu_torch.kernels import _build
+    from stainlib_tpu_torch.kernels import fused_stain as fs
     from stainlib_tpu_torch.kernels import macenko_fused as mf
+    from stainlib_tpu_torch.kernels import vahadane_fused as vf
     from stainlib_tpu_torch.normalization import extractive
 
     assert "jax" not in sys.modules, "the port imported jax"
@@ -108,16 +149,18 @@ def run(dev) -> int:
     t0 = time.perf_counter()
     _build.load_library()
     build_s = time.perf_counter() - t0
-    regs = [ln.strip() for ln in _build.build_info.get("log", "").splitlines()
-            if "registers" in ln or "spill" in ln]
     log(2, f"built={_build.build_info['built']} nvcc_s="
            f"{_build.build_info['seconds']:.2f} load_s={build_s:.2f} "
-           f"ptxas: {' | '.join(regs)}")
+           f"ptxas: {ptxas_summary(_build.build_info.get('log', ''))}")
 
     target = tiles(1, SIDE, SEED)[0]
     batch_np = tiles(B, SIDE, SEED + 1)
     batch = torch.from_numpy(batch_np).to(dev)
+    planar = mf.to_planar(batch).contiguous()
+    big = torch.from_numpy(tiles(B_LARGE, SIDE_LARGE, SEED + 7)).to(dev)
+    kernels = []
 
+    # ---- Macenko (K1) -----------------------------------------------------
     # The main path, counted: the drop-in class on one 256^2 image, then the
     # batched entry on B tiles. Nothing else may launch between the reset
     # and the read.
@@ -147,7 +190,6 @@ def run(dev) -> int:
            f"main-path launches={launches}")
 
     # 4. Batched path: kernel against its plain version, same CUDA tensors.
-    planar = mf.to_planar(batch).contiguous()
     ref = mf.macenko_normalize_planar_ref(
         planar, params.stain_matrix_target, params.max_c_target, **FAST)
     ref = mf.from_planar(ref, SIDE, SIDE)
@@ -158,7 +200,7 @@ def run(dev) -> int:
         planar, params.stain_matrix_target, params.max_c_target, **FAST)
     assert torch.equal(mf.from_planar(planar_out, SIDE, SIDE), out), (
         "planar and interleaved entries disagree")
-    log(4, f"kernel vs plain B={B} {SIDE}^2 fs=2 nb=10: max={mx} u8, "
+    log(4, f"K1 vs plain B={B} {SIDE}^2 fs=2 nb=10: max={mx} u8, "
            f"share differing={share:.3e} (gate: max<=1, share<1e-3); "
            f"planar entry identical")
     max_abs_err = mx
@@ -167,17 +209,16 @@ def run(dev) -> int:
     want = extractive.transform(params, batch)
     mx5, _, over1 = compare(out, want)
     assert mx5 <= 2 and over1 < 1e-2, (mx5, over1)
-    log(5, f"kernel vs functional extractive.transform: max={mx5} u8, "
+    log(5, f"K1 vs functional extractive.transform: max={mx5} u8, "
            f"share>1={over1:.3e} (gate: max<=2, share>1<1e-2)")
 
     # 6. Determinism.
     again = mf.macenko_normalize(batch, params.stain_matrix_target,
                                  params.max_c_target, **FAST)
     assert torch.equal(out, again), "two runs differ"
-    log(6, "two kernel runs byte-identical")
+    log(6, "two K1 runs byte-identical")
 
     # 7. 512^2 tiles: kernel against plain version.
-    big = torch.from_numpy(tiles(B_LARGE, SIDE_LARGE, SEED + 7)).to(dev)
     got = mf.macenko_normalize(big, params.stain_matrix_target,
                                params.max_c_target, **FAST)
     ref = mf.macenko_normalize_ref(big, params.stain_matrix_target,
@@ -185,41 +226,157 @@ def run(dev) -> int:
     mx7, share7, _ = compare(got, ref)
     assert mx7 <= 1 and share7 < 1e-3, (mx7, share7)
     max_abs_err = max(max_abs_err, mx7)
-    log(7, f"kernel vs plain B={B_LARGE} {SIDE_LARGE}^2 fs=2: max={mx7} u8, "
+    log(7, f"K1 vs plain B={B_LARGE} {SIDE_LARGE}^2 fs=2: max={mx7} u8, "
            f"share differing={share7:.3e}")
 
     # 8. Timing at the main path's shape, kernel and plain in turns.
-    def kernel():
-        mf.macenko_normalize(batch, params.stain_matrix_target,
-                             params.max_c_target, **FAST)
+    (ka, kb), (pa, pb) = time_pair(
+        lambda: mf.macenko_normalize(batch, params.stain_matrix_target,
+                                     params.max_c_target, **FAST),
+        lambda: mf.macenko_normalize_ref(batch, params.stain_matrix_target,
+                                         params.max_c_target, **FAST))
+    log(8, f"K1 B={B} {SIDE}^2 fs=2 nb=10, median of {REPS} CUDA-event runs "
+           f"(plain, kernel, kernel, plain): kernel {ka:.3f}/{kb:.3f} ms = "
+           f"{B / min(ka, kb) * 1e3:.0f} tiles/s; plain {pa:.3f}/{pb:.3f} "
+           f"ms = {B / min(pa, pb) * 1e3:.0f} tiles/s; card '{smi}'")
+    kernels.append(dict(
+        name="macenko_normalize_planar", route="cuda",
+        source="stainlib_tpu_torch/kernels/csrc/macenko_fused.cu",
+        replaces="stainlib_tpu/kernels/macenko_fused.py:541",
+        launches=launches, max_abs_err=max_abs_err, ms=min(ka, kb),
+        plain_ms=min(pa, pb)))
 
-    def plain():
-        mf.macenko_normalize_ref(batch, params.stain_matrix_target,
-                                 params.max_c_target, **FAST)
+    # ---- Vahadane (K2, K8, K9) --------------------------------------------
+    # The main path, counted: the drop-in class (fit on one 256^2 image,
+    # transform of one), the batched entry on B tiles (K2), and the
+    # two-kernel pipeline on the same tiles (K8 then K9).
+    vf.launches = vf.dict_launches = fs.launches = 0
+    vnorm = st.ExtractiveStainNormalizer("vahadane", device=dev)
+    vnorm.fit(target)
+    vsingle = vnorm.transform(batch_np[0])
+    vparams = extractive.ExtractiveParams(
+        torch.from_numpy(vnorm.stain_matrix_target).to(dev),
+        torch.from_numpy(vnorm.maxC_target[0]).to(dev))
+    M, mc = vparams.stain_matrix_target, vparams.max_c_target
+    vout = vf.vahadane_normalize(batch, M, mc, **VFAST)
+    two = vf.vahadane_normalize_planar_2k(planar, M, mc)
+    torch.cuda.synchronize()
+    v_launches = dict(k2=vf.launches, k8=vf.dict_launches, k9=fs.launches)
 
-    ms_plain_a = time_ms(plain)
-    ms_kernel_a = time_ms(kernel)
-    ms_kernel_b = time_ms(kernel)
-    ms_plain_b = time_ms(plain)
-    ms_kernel = min(ms_kernel_a, ms_kernel_b)
-    ms_plain = min(ms_plain_a, ms_plain_b)
-    log(8, f"B={B} {SIDE}^2 fs=2 nb=10, median of {REPS} CUDA-event runs "
-           f"(plain, kernel, kernel, plain): kernel {ms_kernel_a:.3f}/"
-           f"{ms_kernel_b:.3f} ms = {B / ms_kernel * 1e3:.0f} tiles/s; plain "
-           f"{ms_plain_a:.3f}/{ms_plain_b:.3f} ms = "
-           f"{B / ms_plain * 1e3:.0f} tiles/s; card '{smi}'")
+    # 9. Drop-in path.
+    assert all(n >= 1 for n in v_launches.values()), (
+        f"a Vahadane kernel never launched on its path: {v_launches}")
+    assert vsingle.dtype == np.uint8 and vsingle.shape == (SIDE, SIDE, 3)
+    assert np.isfinite(vnorm.stain_matrix_target).all()
+    assert (vsingle == vout[0].cpu().numpy()).all(), (
+        "drop-in Vahadane transform differs from the batched kernel")
+    log(9, f"drop-in vahadane fit+transform {SIDE}x{SIDE}: out "
+           f"{vsingle.dtype} {vsingle.shape}, stain_matrix_target="
+           f"{np.round(vnorm.stain_matrix_target, 4).tolist()} maxC_target="
+           f"{np.round(vnorm.maxC_target, 4).tolist()}; main-path launches "
+           f"K2={v_launches['k2']} K8={v_launches['k8']} "
+           f"K9={v_launches['k9']}")
+
+    # 10. Batched path: K2 against its plain version.
+    vref = vf.vahadane_normalize_ref(batch, M, mc, **VFAST)
+    assert vout.shape == batch.shape and vout.dtype == torch.uint8
+    mx10, share10, _ = compare(vout, vref)
+    assert mx10 <= 1 and share10 < 1e-3, (mx10, share10)
+    k2_err = mx10
+    log(10, f"K2 vs plain B={B} {SIDE}^2 fs=2 it=8 nb=10: max={mx10} u8, "
+            f"share differing={share10:.3e} (gate: max<=1, share<1e-3)")
+
+    # 11. The planar entry equals the interleaved one.
+    vplanar = vf.vahadane_normalize_planar(planar, M, mc, **VFAST)
+    assert torch.equal(vf.from_planar(vplanar, SIDE, SIDE), vout), (
+        "planar and interleaved Vahadane entries disagree")
+    log(11, "K2 planar entry identical to the interleaved entry")
+
+    # 12. K2 against the functional path (validate_tpu.py:81's gate).
+    vwant = extractive.transform(vparams, batch, method="vahadane")
+    mx12, share12, over12 = compare(vout, vwant)
+    assert mx12 <= 4 and over12 < 1e-2, (mx12, over12)
+    log(12, f"K2 fs=2 it=8 nb=10 vs functional extractive.transform("
+            f"method='vahadane'): max={mx12} u8, share differing="
+            f"{share12:.3e}, share>1={over12:.3e} (gate: max<=4, "
+            f"share>1<1e-2)")
+
+    # 13. 512^2 tiles: K2 against its plain version.
+    got = vf.vahadane_normalize(big, M, mc, **VFAST)
+    ref = vf.vahadane_normalize_ref(big, M, mc, **VFAST)
+    mx13, share13, _ = compare(got, ref)
+    assert mx13 <= 1 and share13 < 1e-3, (mx13, share13)
+    k2_err = max(k2_err, mx13)
+    log(13, f"K2 vs plain B={B_LARGE} {SIDE_LARGE}^2 fs=2 it=8 nb=10: "
+            f"max={mx13} u8, share differing={share13:.3e}")
+
+    # 14. K8 against its plain version and the functional extractor.
+    m_kernel = vf.vahadane_stain_matrix_planar(planar)
+    m_plain = vf.vahadane_stain_matrix_planar_ref(planar)
+    m_func = stain_matrix_vahadane(batch)
+    e_plain = float((m_kernel - m_plain).abs().max())
+    e_func = float((m_kernel - m_func).abs().max())
+    assert e_plain <= 1e-5 and e_func <= 2e-3, (e_plain, e_func)
+    log(14, f"K8 B={B} {SIDE}^2: max |M - plain| = {e_plain:.3e} (atol "
+            f"1e-5), max |M - functional stain_matrix_vahadane| = "
+            f"{e_func:.3e} (atol 2e-3)")
+
+    # 15. K9 against its plain version, given the plain K8 matrices.
+    k9 = fs.fused_normalize_planar(planar, m_plain, M, mc)
+    k9_ref = fs.fused_normalize_planar_ref(planar, m_plain, M, mc)
+    mx15, share15, _ = compare(k9, k9_ref)
+    assert mx15 <= 1 and share15 < 1e-3, (mx15, share15)
+    log(15, f"K9 vs plain B={B} {SIDE}^2: max={mx15} u8, share differing="
+            f"{share15:.3e} (gate: max<=1, share<1e-3)")
+
+    # 16. The two-kernel pipeline against K2 at the same knobs.
+    one = vf.vahadane_normalize_planar(planar, M, mc)
+    mx16, share16, _ = compare(two, one)
+    assert mx16 <= 1, mx16
+    log(16, f"_2k (K8 then K9) vs K2, fs=1 it=12 nb=14: max={mx16} u8, "
+            f"share differing={share16:.3e} (gate: max<=1)")
+
+    # 17. Determinism.
+    assert torch.equal(vf.vahadane_normalize(batch, M, mc, **VFAST), vout)
+    assert torch.equal(vf.vahadane_stain_matrix_planar(planar), m_kernel)
+    assert torch.equal(fs.fused_normalize_planar(planar, m_plain, M, mc), k9)
+    log(17, "two runs of K2, K8 and K9 each byte-identical")
+
+    # 18. Timing at the main path's shape, kernel and plain in turns.
+    t2 = time_pair(lambda: vf.vahadane_normalize(batch, M, mc, **VFAST),
+                   lambda: vf.vahadane_normalize_ref(batch, M, mc, **VFAST))
+    t8 = time_pair(lambda: vf.vahadane_stain_matrix_planar(planar),
+                   lambda: vf.vahadane_stain_matrix_planar_ref(planar))
+    t9 = time_pair(
+        lambda: fs.fused_normalize_planar(planar, m_plain, M, mc),
+        lambda: fs.fused_normalize_planar_ref(planar, m_plain, M, mc))
+    for label, ((ka, kb), (pa, pb)) in (("K2 fs=2 it=8 nb=10", t2),
+                                        ("K8 fs=1 it=12 nb=14", t8),
+                                        ("K9", t9)):
+        log(18, f"{label} B={B} {SIDE}^2, median of {REPS} CUDA-event runs "
+                f"(plain, kernel, kernel, plain): kernel {ka:.3f}/{kb:.3f} "
+                f"ms = {B / min(ka, kb) * 1e3:.0f} tiles/s; plain "
+                f"{pa:.3f}/{pb:.3f} ms; card '{smi}'")
+    kernels += [
+        dict(name="vahadane_normalize_planar", route="cuda",
+             source="stainlib_tpu_torch/kernels/csrc/vahadane_fused.cu",
+             replaces="stainlib_tpu/kernels/vahadane_fused.py:342",
+             launches=v_launches["k2"], max_abs_err=k2_err,
+             ms=min(t2[0]), plain_ms=min(t2[1])),
+        dict(name="vahadane_stain_matrix_planar", route="cuda",
+             source="stainlib_tpu_torch/kernels/csrc/vahadane_fused.cu",
+             replaces="stainlib_tpu/kernels/vahadane_fused.py:286",
+             launches=v_launches["k8"], max_abs_err=e_plain,
+             ms=min(t8[0]), plain_ms=min(t8[1])),
+        dict(name="fused_normalize_planar", route="cuda",
+             source="stainlib_tpu_torch/kernels/csrc/fused_stain.cu",
+             replaces="stainlib_tpu/kernels/fused_stain.py:219",
+             launches=v_launches["k9"], max_abs_err=mx15,
+             ms=min(t9[0]), plain_ms=min(t9[1])),
+    ]
 
     print(smi, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "macenko_normalize_planar",
-        "route": "cuda",
-        "source": "stainlib_tpu_torch/kernels/csrc/macenko_fused.cu",
-        "replaces": "stainlib_tpu/kernels/macenko_fused.py:541",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        "ms": ms_kernel,
-        "plain_ms": ms_plain,
-    }]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

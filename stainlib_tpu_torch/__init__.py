@@ -1,11 +1,13 @@
 """stainlib_tpu_torch — the PyTorch/CUDA port of the JAX package beside it.
 
 Same module paths and function names as the JAX package, which stays the
-reference every module here is tested against. This first slice covers
-the Macenko normalize main path: the functional ops, Macenko extraction,
-extractive fit/transform, the drop-in object API, and the fused per-tile
-Macenko kernel (``kernels/macenko_fused.py``), hand-written in CUDA C++
-for Hopper (``kernels/csrc/``) and built with ``nvcc`` at first use.
+reference every module here is tested against. It covers the Macenko and
+Vahadane normalize paths: the functional ops, Macenko and Vahadane
+extraction (with the dictionary learner), extractive fit/transform, the
+drop-in object API, and the fused per-tile kernels
+(``kernels/macenko_fused.py``, ``kernels/vahadane_fused.py``,
+``kernels/fused_stain.py``), hand-written in CUDA C++ for Hopper
+(``kernels/csrc/``) and built with ``nvcc`` at first use.
 
 Importing the package imports ``torch`` only: never jax, never
 the JAX package, and it builds nothing.
@@ -28,6 +30,7 @@ from stainlib_tpu_torch.api import (  # noqa: E402
     LuminosityStandardizer,
     LuminosityThresholdTissueLocator,
     MacenkoStainExtractor,
+    VahadaneStainExtractor,
     get_concentrations,
 )
 from stainlib_tpu_torch.exceptions import (  # noqa: E402
@@ -42,6 +45,7 @@ __version__ = "0.1.0"
 __all__ = [
     "ExtractiveStainNormalizer",
     "MacenkoStainExtractor",
+    "VahadaneStainExtractor",
     "LuminosityStandardizer",
     "LuminosityThresholdTissueLocator",
     "get_concentrations",

@@ -1,6 +1,7 @@
 """Drop-in object API mirroring the reference's public classes.
 
-Port of the JAX package's ``api.py:36-201`` (the Macenko parts). Every
+Port of the JAX package's ``api.py:36-201`` (the Macenko and Vahadane
+parts; ``ReinhardStainNormalizer`` is not ported yet). Every
 class keeps the name, constructor, attributes and raise contract of the
 reference (``stainlib/__init__.py:19-30``): single uint8 numpy images go
 in and come out. Each call runs on an explicit ``device``, which defaults
@@ -10,6 +11,7 @@ Class -> reference mapping:
   * ``LuminosityThresholdTissueLocator``  -> ``stain_utils.py:29-48``
   * ``LuminosityStandardizer``            -> ``stain_utils.py:50-67``
   * ``MacenkoStainExtractor``             -> ``macenko_stain_extractor.py:5-44``
+  * ``VahadaneStainExtractor``            -> ``vahadane_stain_extractor.py:16-43``
   * ``ExtractiveStainNormalizer``         -> ``normalizer.py:16-50``
 """
 
@@ -20,7 +22,9 @@ import torch
 
 from stainlib_tpu_torch.exceptions import TissueMaskException
 from stainlib_tpu_torch.extraction.macenko import stain_matrix_macenko
+from stainlib_tpu_torch.extraction.vahadane import stain_matrix_vahadane
 from stainlib_tpu_torch.kernels.macenko_fused import macenko_normalize
+from stainlib_tpu_torch.kernels.vahadane_fused import vahadane_normalize
 from stainlib_tpu_torch.normalization import extractive as _extractive
 from stainlib_tpu_torch.ops import tissue as _tissue
 from stainlib_tpu_torch.ops.colorspace import to_uint8
@@ -54,8 +58,8 @@ def _require_tissue(I, luminosity_threshold: float = 0.8, device="cuda"):
 
 
 def _use_fused(I, device) -> bool:
-    """Single images go through the fused per-tile CUDA kernel on a CUDA
-    device, with the JAX package's gate (``api.py:55-65``): lane-aligned
+    """Single images go through the method's fused per-tile CUDA kernel on
+    a CUDA device, with the JAX package's gate (``api.py:55-65``): lane-aligned
     and at most 512^2 pixels, where its estimation sample is defined. Other
     images, and every image on the CPU, take the functional path."""
     n_pixels = I.shape[0] * I.shape[1]
@@ -108,6 +112,18 @@ class MacenkoStainExtractor:
         return M
 
 
+class VahadaneStainExtractor:
+    @staticmethod
+    def get_stain_matrix(I, luminosity_threshold=0.8, regularizer=0.1,
+                         device="cuda"):
+        _check_uint8_image(I)
+        M = stain_matrix_vahadane(_tensor(I, device), luminosity_threshold,
+                                  regularizer).cpu().numpy()
+        if np.isnan(M).any():
+            raise TissueMaskException("Empty tissue mask computed")
+        return M
+
+
 def get_concentrations(I, stain_matrix, regularizer: float = 0.01,
                        device="cuda"):
     """Per-pixel stain concentrations, flattened to (H*W, 2) like
@@ -154,10 +170,11 @@ class ExtractiveStainNormalizer:
         _require_tissue(I, device=self.device)
         x = _tensor(I, self.device)
         if _use_fused(I, self.device):
-            out = macenko_normalize(x[None],
-                                    self._params.stain_matrix_target,
-                                    self._params.max_c_target,
-                                    **_fast_fit_kwargs(I, self.method))[0]
+            fused = (macenko_normalize if self.method == "macenko"
+                     else vahadane_normalize)
+            out = fused(x[None], self._params.stain_matrix_target,
+                        self._params.max_c_target,
+                        **_fast_fit_kwargs(I, self.method))[0]
         else:
             out = _extractive.transform(self._params, x, method=self.method)
         return out.cpu().numpy()

@@ -1,7 +1,8 @@
 """Lazy build and ``ctypes`` binding of the CUDA kernels in ``csrc/``.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-C interface, for ``sm_90a`` (Hopper), at first use. The library goes to
+``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a`` (Hopper), all sources
+at once in parallel processes, and links the objects into one shared
+library with a plain C interface, at first use. The library goes to
 ``kernels/_build/`` under a name that carries the hash of the sources and
 flags, so it is rebuilt only when they change. Importing this module
 builds nothing; neither does importing the package.
@@ -16,7 +17,10 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
@@ -26,11 +30,40 @@ BUILD_DIR = _HERE / "_build"
 # versions the kernels are held against. No fast math: 255*exp(-od) sits
 # on uint8 boundaries. -Xptxas -v reports registers and spills.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _lib = None
 build_info: dict = {}
+
+_ptr, _i32, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# Every entry point takes the device first and the stream last, and
+# returns a cudaError_t.
+_ARGTYPES = {
+    "macenko_normalize_launch": [
+        _i32, _ptr, _ptr, _ptr, _ptr,  # device, in, out, scal, luts
+        _i32, _i32, _i32, _i32,  # batch, n_pix, pix/ch stride
+        _i32, _i32, _i32,  # nblk, blk, stp
+        _f32, _f32, _f32, _f32, _f32,  # y_thr, lam, q_lo, q_hi, q_conc
+        _i32, _i32, _ptr],  # it_angle, it_conc, stream
+    "vahadane_normalize_launch": [
+        _i32, _ptr, _ptr, _ptr, _ptr,  # device, in, out, scal, luts
+        _i32, _i32, _i32, _i32,  # batch, n_pix, pix/ch stride
+        _i32, _i32, _i32,  # nblk, blk, stp
+        _f32, _f32, _f32, _f32, _f32, _f32,  # y_thr, lam_fit, lam, q_lo,
+        #                                      q_hi, q_conc
+        _i32, _i32, _i32, _ptr],  # num_iters, it_angle, it_conc, stream
+    "vahadane_dict_launch": [
+        _i32, _ptr, _ptr, _ptr,  # device, in, out, luts
+        _i32, _i32, _i32, _i32,  # batch, n_pix, pix/ch stride
+        _i32, _i32, _i32,  # nblk, blk, stp
+        _f32, _f32, _f32, _f32,  # y_thr, lam_fit, q_lo, q_hi
+        _i32, _i32, _ptr],  # num_iters, it_angle, stream
+    "fused_normalize_launch": [
+        _i32, _ptr, _ptr, _ptr, _ptr,  # device, in, out, scal, lut
+        _i32, _i32, _i32, _i32,  # batch, n_pix, pix/ch stride
+        _f32, _i32, _ptr],  # q, iters, stream
+}
 
 
 def _nvcc() -> str:
@@ -50,28 +83,47 @@ def _sources():
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libstain_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run every command at once, each in its own process; (returncode,
+    log) of each, in order."""
+    def run(cmd):
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        return proc.returncode, proc.stdout + proc.stderr
+
+    with ThreadPoolExecutor(max_workers=max(len(cmds), 1)) as pool:
+        return list(pool.map(run, cmds))
+
+
 def _compile(target: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_info.update(seconds=time.perf_counter() - t0, built=True,
-                      log=proc.stdout + proc.stderr)
-    if proc.returncode:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, target)  # atomic: concurrent builders never see a stub
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        cu = [s for s in _sources() if s.suffix == ".cu"]
+        objs = [str(Path(tmp) / f"{s.stem}.o") for s in cu]
+        cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(s), "-o", o]
+                for s, o in zip(cu, objs)]
+        results = _run_all(cmds)
+        log = "".join(out for _, out in results)
+        so = str(Path(tmp) / "lib.so")
+        link = [nvcc, *LINK_FLAGS, "-o", so, *objs]
+        if not any(rc for rc, _ in results):
+            results += _run_all([link])
+            log += results[-1][1]
+        build_info.update(seconds=time.perf_counter() - t0, built=True,
+                          log=log)
+        for cmd, (rc, out) in zip(cmds + [link], results):
+            if rc:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n"
+                                   f"{out}")
+        os.replace(so, target)  # atomic: concurrent builders never see a stub
 
 
 def load_library() -> ctypes.CDLL:
@@ -85,15 +137,11 @@ def load_library() -> ctypes.CDLL:
     else:
         _compile(target)
     lib = ctypes.CDLL(str(target))
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = lib.macenko_normalize_launch
-    fn.argtypes = [i32, ptr, ptr, ptr, ptr,  # device, in, out, scal, luts
-                   i32, i32, i32, i32,  # batch, n_pix, pix/ch stride
-                   i32, i32, i32,  # nblk, blk, stp
-                   f32, f32, f32, f32, f32,  # y_thr, lam, q_lo, q_hi, q_conc
-                   i32, i32, ptr]  # it_angle, it_conc, stream
-    fn.restype = i32
-    lib.stain_error_string.argtypes = [i32]
+    for name, argtypes in _ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = _i32
+    lib.stain_error_string.argtypes = [_i32]
     lib.stain_error_string.restype = ctypes.c_char_p
     _lib = lib
     return lib
@@ -101,3 +149,15 @@ def load_library() -> ctypes.CDLL:
 
 def error_string(err: int) -> str:
     return load_library().stain_error_string(err).decode()
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call entry point ``name`` on ``device`` with ``args`` (everything
+    between the device and the stream) on the device's current stream;
+    raise if the launch is refused."""
+    fn = getattr(load_library(), name)
+    with torch.cuda.device(device):
+        err = fn(torch.cuda.current_device(), *args,
+                 torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} failed: {error_string(err)} ({err})")

@@ -1,20 +1,45 @@
-"""Planar tile layout and the plain count-bisection percentile.
+"""Planar tile layout, the plain percentile and apply pieces, and the fused
+fixed-matrix normalize kernel.
 
 Port of the JAX package's ``kernels/fused_stain.py``: the layout helpers
-``to_planar`` / ``from_planar`` (``:281-292``) and, as plain torch, the
-``n_cands=1`` path of ``_multi_masked_percentile`` (``:43-146``) that the
-fused stain kernels share. Here it serves the plain versions of those
-kernels; the CUDA kernels carry their own copy of the same search
-(``csrc/stain_common.cuh``). The search answers ``np.percentile``'s
-linear rule (``stainlib/normalization/normalizer.py:36,46``).
+``to_planar`` / ``from_planar`` (``:281-292``); as plain torch, the
+``n_cands=1`` path of ``_multi_masked_percentile`` (``:43-146``) and the
+lasso and reconstruction that the fused stain kernels share; and
+``fused_normalize_planar`` (``:219-278``, body ``_normalize_kernel``
+``:177-215``): normalize every pixel of a tile against a given per-tile
+source stain matrix, with the 99th-percentile concentrations taken over
+the tile. The search answers ``np.percentile``'s linear rule
+(``stainlib/normalization/normalizer.py:36,46``).
+
+Kernel source note (``csrc/fused_stain.cu``):
+
+* Replaces the Pallas TPU kernel ``fused_normalize_planar`` /
+  ``_normalize_kernel`` in the JAX package's ``kernels/fused_stain.py``.
+* Bound: work per pixel. Per tile it makes 17 passes over every pixel
+  (the concentration maximum, 14 bisection rounds, the successor, the
+  apply), each with a lasso per pixel.
+* Design: K1's (``macenko_fused.py``): one 512-thread block per tile,
+  strided passes re-reading the tile through L2, a shared 256-entry OD
+  table, fixed-order block reductions, so the output is bit-reproducible.
+  The OD table holds ``_od_lasso``'s expression, not ``_od_and_mask``'s.
+
+On a CUDA tensor ``fused_normalize_planar`` launches the kernel; on a CPU
+tensor it runs the plain version ``fused_normalize_planar_ref``.
+``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 LANES = 128
 BIG = 3.4e38
+
+# Kernel launches since import (or since a caller reset it).
+launches = 0
 
 
 def to_planar(rgb):
@@ -29,6 +54,37 @@ def to_planar(rgb):
 def from_planar(planar, h, w):
     """Inverse of :func:`to_planar`."""
     return planar.reshape(planar.shape[0], 3, h, w).permute(0, 2, 3, 1)
+
+
+def _check(x, planar: bool):
+    """Raise unless ``x`` is uint8 tiles a kernel wrapper takes."""
+    if not isinstance(x, torch.Tensor) or x.dtype != torch.uint8:
+        raise TypeError("expected a uint8 torch.Tensor")
+    if planar:
+        ok = x.ndim == 4 and x.shape[1] == 3 and x.shape[3] == LANES
+        want = "(B, 3, R, 128)"
+    else:
+        ok = (x.ndim == 4 and x.shape[3] == 3
+              and (x.shape[1] * x.shape[2]) % LANES == 0)
+        want = "(B, H, W, 3) with H*W a multiple of 128"
+    if not ok:
+        raise ValueError(f"expected {want} tiles, got {tuple(x.shape)}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    if x.device.type == "cuda" and not x.is_contiguous():
+        raise ValueError("the CUDA kernel takes contiguous tiles")
+
+
+def _n_pix(x, planar: bool) -> int:
+    return x.shape[2] * x.shape[3] if planar else x.shape[1] * x.shape[2]
+
+
+def _per_tile(x, width, batch, device):
+    """A tensor or array, shared or per tile, as (batch, width) float32."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.tensor(np.asarray(x, np.float32))
+    return x.to(device=device, dtype=torch.float32).reshape(
+        -1, width).expand(batch, width)
 
 
 def _multi_masked_percentile(searches, n_iters=14):
@@ -84,3 +140,176 @@ def _multi_masked_percentile(searches, n_iters=14):
         v_b = torch.where(cnt_hi > rank + 1.0, hi_a, succ)
         results.append(hi_a * (1.0 - frac) + v_b * frac)
     return results
+
+
+def _sum64(x):
+    """Sum over the last axis in float64, rounded once to float32. The
+    plain versions and the kernels sum the pixel terms that feed a stain
+    estimate (moments, BCD statistics) this way, so both round to the same
+    float32 whatever the order of the sum; a float32 sum in another order
+    can flip a bisection decision downstream."""
+    return x.double().sum(-1).float()
+
+
+def _lasso2(od0, od1, od2, h, e, lam):
+    """Exact non-negative K=2 lasso per pixel against per-tile rows
+    ``h``/``e`` (3 lists of (B,)); the JAX package's
+    ``macenko_fused.py:354-374`` and ``fused_stain.py:158-174``."""
+    g11 = h[0] * h[0] + h[1] * h[1] + h[2] * h[2]
+    g22 = e[0] * e[0] + e[1] * e[1] + e[2] * e[2]
+    g12 = h[0] * e[0] + h[1] * e[1] + h[2] * e[2]
+    det = torch.clamp_min(g11 * g22 - g12 * g12, 1e-12)[:, None]
+    h = [x[:, None] for x in h]
+    e = [x[:, None] for x in e]
+    g11, g22, g12 = g11[:, None], g22[:, None], g12[:, None]
+    bb1 = od0 * h[0] + od1 * h[1] + od2 * h[2] - lam
+    bb2 = od0 * e[0] + od1 * e[1] + od2 * e[2] - lam
+    c1_full = (g22 * bb1 - g12 * bb2) / det
+    c2_full = (g11 * bb2 - g12 * bb1) / det
+    ok_full = (c1_full >= 0.0) & (c2_full >= 0.0)
+    c1_only = torch.clamp_min(bb1, 0.0) / g11
+    ok_1 = (bb1 >= 0.0) & (g12 * c1_only - bb2 >= 0.0)
+    c2_only = torch.clamp_min(bb2, 0.0) / g22
+    ok_2 = (bb2 >= 0.0) & (g12 * c2_only - bb1 >= 0.0)
+    c1 = torch.where(ok_full, c1_full, torch.where(ok_1, c1_only, 0.0))
+    c2 = torch.where(ok_full, c2_full,
+                     torch.where(~ok_1 & ok_2, c2_only, 0.0))
+    return c1, c2
+
+
+def _scale_and_reconstruct(c1, c2, idx, q, n_iters, tgt, max_c):
+    """The fused kernels' last phases: the two q-th percentile
+    concentrations over the pixels ``idx`` (None: all), unmasked, each
+    bracket [0, max]; rescale by ``max_c`` (B, 2) over them; reconstruct
+    through the target rows ``tgt`` (B, 6); clip and truncate to uint8.
+    (B, N) concentrations in, (B, 3, N) uint8 out."""
+    c1f, c2f = (c1, c2) if idx is None else (c1[:, idx], c2[:, idx])
+    B = c1.shape[0]
+    n_fit = torch.full((B,), float(c1f.shape[1]), dtype=torch.float32,
+                       device=c1.device)
+    zero = torch.zeros_like(n_fit)
+    maxc1, maxc2 = _multi_masked_percentile(
+        [(c1f, None, n_fit, q, zero, c1f.amax(-1)),
+         (c2f, None, n_fit, q, zero, c2f.amax(-1))], n_iters=n_iters)
+    c1s = c1 * (max_c[:, 0] / torch.clamp_min(maxc1, 1e-8))[:, None]
+    c2s = c2 * (max_c[:, 1] / torch.clamp_min(maxc2, 1e-8))[:, None]
+    out = [torch.clamp(255.0 * torch.exp(-(c1s * tgt[:, ch, None]
+                                           + c2s * tgt[:, 3 + ch, None])),
+                       0.0, 255.0).to(torch.int32).to(torch.uint8)
+           for ch in range(3)]
+    return torch.stack(out, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# K9: normalize against given per-tile source stain matrices.
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _od_lasso_table(device):
+    """(256,) float32 OD of a byte as ``_od_lasso`` computes it
+    (``fused_stain.py:154-156``): ``max(-log(max(u, 1) * (1/255)), 1e-6)``.
+    In float32 this differs from ``_od_and_mask``'s OD (the Macenko and
+    Vahadane kernels' tables) in the last bit for 100 of the 256 values."""
+    u = torch.arange(256, dtype=torch.float32, device=device)
+    return torch.clamp_min(-torch.log(torch.clamp_min(u, 1.0) * (1.0 / 255.0)),
+                           1e-6).contiguous()
+
+
+def _od_lasso(rgb_planar, h, e, lam):
+    """Plain ``_od_lasso`` (``fused_stain.py:149-174``): (B, 3, R, 128)
+    uint8 -> OD -> exact lasso against the per-tile rows -> (c1, c2), each
+    (B, R*128)."""
+    B = rgb_planar.shape[0]
+    x = rgb_planar.reshape(B, 3, -1).to(torch.long)
+    lut = _od_lasso_table(rgb_planar.device)
+    return _lasso2(lut[x[:, 0]], lut[x[:, 1]], lut[x[:, 2]], h, e, lam)
+
+
+def _normalize_scalars(stain_matrix_src, stain_matrix_tgt, max_c_target,
+                       regularizer, batch, device):
+    """The kernel's (B, 16) per-tile table, the TPU kernel's layout: source
+    rows, target rows, maxC_target, regularizer, pad."""
+    return torch.cat([
+        _per_tile(stain_matrix_src, 6, batch, device),
+        _per_tile(stain_matrix_tgt, 6, batch, device),
+        _per_tile(max_c_target, 2, batch, device),
+        torch.full((batch, 1), regularizer, dtype=torch.float32,
+                   device=device),
+        torch.zeros((batch, 1), dtype=torch.float32, device=device),
+    ], dim=1).contiguous()
+
+
+def fused_normalize_planar_ref(rgb_planar, stain_matrix_src, stain_matrix_tgt,
+                               max_c_target, q: float = 99.0,
+                               regularizer: float = 0.01):
+    """Plain torch version of the kernel over planar (B, 3, R, 128) uint8
+    tiles, step for step ``_normalize_kernel`` (``:177-215``)."""
+    B, _, R, L = rgb_planar.shape
+    scal = _normalize_scalars(stain_matrix_src, stain_matrix_tgt,
+                              max_c_target, regularizer, B,
+                              rgb_planar.device)
+    c1, c2 = _od_lasso(rgb_planar, list(scal[:, 0:3].T),
+                       list(scal[:, 3:6].T), scal[:, 14, None])
+    out = _scale_and_reconstruct(c1, c2, None, q, 14, scal[:, 6:12],
+                                 scal[:, 12:14])
+    return out.reshape(B, 3, R, L)
+
+
+def fused_normalize_ref(rgb, stain_matrix_src, stain_matrix_tgt,
+                        max_c_target, **kw):
+    """Plain version over (B, H, W, 3) uint8 tiles."""
+    _, H, W, _ = rgb.shape
+    out = fused_normalize_planar_ref(to_planar(rgb), stain_matrix_src,
+                                     stain_matrix_tgt, max_c_target, **kw)
+    return from_planar(out, H, W)
+
+
+def _launch(x, planar: bool, stain_matrix_src, stain_matrix_tgt,
+            max_c_target, q: float = 99.0, regularizer: float = 0.01):
+    global launches
+    from stainlib_tpu_torch.kernels import _build
+
+    B, dev = x.shape[0], x.device
+    n_pix = _n_pix(x, planar)
+    scal = _normalize_scalars(stain_matrix_src, stain_matrix_tgt,
+                              max_c_target, regularizer, B, dev)
+    out = torch.empty_like(x)
+    pix_stride, ch_stride = (1, n_pix) if planar else (3, 1)
+    _build.launch("fused_normalize_launch", dev, x.data_ptr(),
+                  out.data_ptr(), scal.data_ptr(),
+                  _od_lasso_table(dev).data_ptr(), B, n_pix, pix_stride,
+                  ch_stride, q / 100.0, 14)
+    launches += 1
+    return out
+
+
+def fused_normalize_planar(rgb_planar, stain_matrix_src, stain_matrix_tgt,
+                           max_c_target, q: float = 99.0,
+                           regularizer: float = 0.01):
+    """Fused normalize over planar (B, 3, R, 128) uint8 tiles.
+
+    ``stain_matrix_src``: (B, 2, 3) per-tile source stain matrices;
+    ``stain_matrix_tgt``: (2, 3) or (B, 2, 3); ``max_c_target``: (2,) or
+    (B, 2). The JAX signature's ``interpret`` has no counterpart here.
+    """
+    _check(rgb_planar, planar=True)
+    kw = dict(q=q, regularizer=regularizer)
+    if rgb_planar.device.type == "cpu":
+        return fused_normalize_planar_ref(rgb_planar, stain_matrix_src,
+                                          stain_matrix_tgt, max_c_target,
+                                          **kw)
+    return _launch(rgb_planar, True, stain_matrix_src, stain_matrix_tgt,
+                   max_c_target, **kw)
+
+
+def fused_normalize(rgb, stain_matrix_src, stain_matrix_tgt, max_c_target,
+                    **kw):
+    """(B, H, W, 3) uint8 entry point; the kernel reads the interleaved
+    bytes directly."""
+    _check(rgb, planar=False)
+    if rgb.device.type == "cpu":
+        return fused_normalize_ref(rgb, stain_matrix_src, stain_matrix_tgt,
+                                   max_c_target, **kw)
+    return _launch(rgb, False, stain_matrix_src, stain_matrix_tgt,
+                   max_c_target, **kw)

@@ -35,12 +35,17 @@ from __future__ import annotations
 
 import functools
 
-import numpy as np
 import torch
 
 from stainlib_tpu_torch.kernels.fused_stain import (
     LANES,
+    _check,
+    _lasso2,
     _multi_masked_percentile,
+    _n_pix,
+    _per_tile,
+    _scale_and_reconstruct,
+    _sum64,
     from_planar,
     to_planar,
 )
@@ -120,6 +125,15 @@ def _sample_index(r: int, stride: int, device):
             + torch.arange(bs, device=device)).reshape(-1)
     return (rows[:, None] * LANES
             + torch.arange(LANES, device=device)).reshape(-1)
+
+
+def _sample_args(n_pix: int, stride: int):
+    """The kernels' ``(nblk, blk, stp)``: the estimation sample of
+    :func:`_sample_index` in flat pixel units."""
+    split = _stride_split(n_pix // LANES, stride)
+    bs, step, blocks = (split if split is not None
+                        else (n_pix // LANES, n_pix // LANES, 1))
+    return blocks, bs * LANES, step * LANES
 
 
 # ---------------------------------------------------------------------------
@@ -257,42 +271,48 @@ def _stain_rows_from_bounds(v, min_m, max_m):
     return [x * hn for x in h], [x * en for x in e]
 
 
-def _lasso2(od0, od1, od2, h, e, lam):
-    """Exact non-negative K=2 lasso per pixel against per-tile rows
-    ``h``/``e`` (3 lists of (B,)); ``macenko_fused.py:354-374``."""
-    g11 = h[0] * h[0] + h[1] * h[1] + h[2] * h[2]
-    g22 = e[0] * e[0] + e[1] * e[1] + e[2] * e[2]
-    g12 = h[0] * e[0] + h[1] * e[1] + h[2] * e[2]
-    det = torch.clamp_min(g11 * g22 - g12 * g12, 1e-12)[:, None]
-    h = [x[:, None] for x in h]
-    e = [x[:, None] for x in e]
-    g11, g22, g12 = g11[:, None], g22[:, None], g12[:, None]
-    bb1 = od0 * h[0] + od1 * h[1] + od2 * h[2] - lam
-    bb2 = od0 * e[0] + od1 * e[1] + od2 * e[2] - lam
-    c1_full = (g22 * bb1 - g12 * bb2) / det
-    c2_full = (g11 * bb2 - g12 * bb1) / det
-    ok_full = (c1_full >= 0.0) & (c2_full >= 0.0)
-    c1_only = torch.clamp_min(bb1, 0.0) / g11
-    ok_1 = (bb1 >= 0.0) & (g12 * c1_only - bb2 >= 0.0)
-    c2_only = torch.clamp_min(bb2, 0.0) / g22
-    ok_2 = (bb2 >= 0.0) & (g12 * c2_only - bb1 >= 0.0)
-    c1 = torch.where(ok_full, c1_full, torch.where(ok_1, c1_only, 0.0))
-    c2 = torch.where(ok_full, c2_full,
-                     torch.where(~ok_1 & ok_2, c2_only, 0.0))
-    return c1, c2
-
-
 def _target_scalars(stain_matrix_tgt, max_c_target, batch, device):
     """Per-tile (B, 8) float32 table: target stain rows, then maxC. Each
     input is a tensor or an array, shared ((2, 3), (2,)) or per tile."""
-    def f32(x, width):
-        if not isinstance(x, torch.Tensor):
-            x = torch.tensor(np.asarray(x, np.float32))
-        return x.to(device=device, dtype=torch.float32).reshape(
-            -1, width).expand(batch, width)
-
-    return torch.cat([f32(stain_matrix_tgt, 6), f32(max_c_target, 2)],
+    return torch.cat([_per_tile(stain_matrix_tgt, 6, batch, device),
+                      _per_tile(max_c_target, 2, batch, device)],
                      dim=1).contiguous()
+
+
+def _od_and_mask(rgb_planar, luminosity_threshold: float):
+    """(B, 3, R, 128) uint8 -> OD planes od0, od1, od2 (B, R*128) float32
+    and the tissue mask (B, R*128), through the shared tables
+    (``_od_and_mask``, ``macenko_fused.py:60-85``)."""
+    B = rgb_planar.shape[0]
+    lut = _tables(rgb_planar.device)
+    x = rgb_planar.reshape(B, 3, -1).to(torch.long)
+    mask = (lut[1][x[:, 0]] + lut[2][x[:, 1]] + lut[3][x[:, 2]]
+            < _y_threshold(luminosity_threshold))
+    return lut[0][x[:, 0]], lut[0][x[:, 1]], lut[0][x[:, 2]], mask
+
+
+def _macenko_rows(od0, od1, od2, mask, angular_percentile: float,
+                  n_bisect: int):
+    """The Macenko estimate from a tile's estimation sample: masked
+    moments -> eigenplane -> the two masked angular percentiles -> H-first
+    row-normalized stain rows (``_apply_kernel``'s phases 1-3, the
+    Vahadane kernels' warm start). Returns (n_valid, h, e)."""
+    B = od0.shape[0]
+    m = mask.to(torch.float32)
+    stats = [m.sum(-1)] + [_sum64(m * o) for o in (od0, od1, od2)] + [
+        _sum64(m * a * b)
+        for a, b in ((od0, od0), (od0, od1), (od0, od2),
+                     (od1, od1), (od1, od2), (od2, od2))]
+    v = _eigenplane_scalars(stats)
+    angle = _pseudo_angle(od0, od1, od2, v)
+    zero = torch.zeros(B, dtype=torch.float32, device=od0.device)
+    four = torch.full((B,), 4.0, dtype=torch.float32, device=od0.device)
+    min_m, max_m = _multi_masked_percentile(
+        [(angle, mask, stats[0], 100.0 - angular_percentile, zero, four),
+         (angle, mask, stats[0], angular_percentile, zero, four)],
+        n_iters=max(n_bisect - 4, 8))
+    h, e = _stain_rows_from_bounds(v, min_m, max_m)
+    return stats[0], h, e
 
 
 def macenko_normalize_planar_ref(
@@ -309,58 +329,20 @@ def macenko_normalize_planar_ref(
     """Plain torch version of the fused kernel over planar (B, 3, R, 128)
     uint8 tiles, step for step ``_apply_kernel`` (``:413-490``)."""
     B, _, R, L = rgb_planar.shape
-    dev = rgb_planar.device
-    scal = _target_scalars(stain_matrix_tgt, max_c_target, B, dev)
-    lut = _tables(dev)
-    x = rgb_planar.reshape(B, 3, R * L).to(torch.long)
-    od0, od1, od2 = lut[0][x[:, 0]], lut[0][x[:, 1]], lut[0][x[:, 2]]
-    mask = (lut[1][x[:, 0]] + lut[2][x[:, 1]] + lut[3][x[:, 2]]
-            < _y_threshold(luminosity_threshold))
-
-    idx = _sample_index(R, fit_stride, dev)
+    scal = _target_scalars(stain_matrix_tgt, max_c_target, B,
+                           rgb_planar.device)
+    od0, od1, od2, mask = _od_and_mask(rgb_planar, luminosity_threshold)
+    idx = _sample_index(R, fit_stride, rgb_planar.device)
 
     def sub(t):
         return t if idx is None else t[:, idx]
 
-    # Phase 1: masked moments over the sample -> eigenplane -> angles.
-    od0f, od1f, od2f, maskf = sub(od0), sub(od1), sub(od2), sub(mask)
-    m = maskf.to(torch.float32)
-    stats = [m.sum(-1)] + [(m * o).sum(-1) for o in (od0f, od1f, od2f)] + [
-        (m * a * b).sum(-1)
-        for a, b in ((od0f, od0f), (od0f, od1f), (od0f, od2f),
-                     (od1f, od1f), (od1f, od2f), (od2f, od2f))]
-    v = _eigenplane_scalars(stats)
-    angle = _pseudo_angle(od0f, od1f, od2f, v)
-
-    # Phase 2: the two masked angular percentiles.
-    zero = torch.zeros(B, dtype=torch.float32, device=dev)
-    four = torch.full((B,), 4.0, dtype=torch.float32, device=dev)
-    min_m, max_m = _multi_masked_percentile(
-        [(angle, maskf, stats[0], 100.0 - angular_percentile, zero, four),
-         (angle, maskf, stats[0], angular_percentile, zero, four)],
-        n_iters=max(n_bisect - 4, 8))
-
-    # Phase 3: stain rows + lasso on every pixel.
-    h, e = _stain_rows_from_bounds(v, min_m, max_m)
+    _, h, e = _macenko_rows(sub(od0), sub(od1), sub(od2), sub(mask),
+                            angular_percentile, n_bisect)
     c1, c2 = _lasso2(od0, od1, od2, h, e, regularizer)
-
-    # Phase 4: 99th-pct concentrations over the (unmasked) sample.
-    c1f, c2f = sub(c1), sub(c2)
-    n_fit = torch.full((B,), float(c1f.shape[1]), dtype=torch.float32,
-                       device=dev)
-    maxc1, maxc2 = _multi_masked_percentile(
-        [(c1f, None, n_fit, q_conc, zero, c1f.amax(-1)),
-         (c2f, None, n_fit, q_conc, zero, c2f.amax(-1))],
-        n_iters=n_bisect)
-
-    # Phase 5: rescale + Beer-Lambert reconstruction, truncated to uint8.
-    c1s = c1 * (scal[:, 6] / torch.clamp_min(maxc1, 1e-8))[:, None]
-    c2s = c2 * (scal[:, 7] / torch.clamp_min(maxc2, 1e-8))[:, None]
-    out = [torch.clamp(255.0 * torch.exp(-(c1s * scal[:, ch, None]
-                                           + c2s * scal[:, 3 + ch, None])),
-                       0.0, 255.0).to(torch.int32).to(torch.uint8)
-           for ch in range(3)]
-    return torch.stack(out, dim=1).reshape(B, 3, R, L)
+    out = _scale_and_reconstruct(c1, c2, idx, q_conc, n_bisect, scal[:, :6],
+                                 scal[:, 6:])
+    return out.reshape(B, 3, R, L)
 
 
 def macenko_normalize_ref(rgb, stain_matrix_tgt, max_c_target, **kw):
@@ -377,24 +359,6 @@ def macenko_normalize_ref(rgb, stain_matrix_tgt, max_c_target, **kw):
 # ---------------------------------------------------------------------------
 
 
-def _check(x, planar: bool):
-    if not isinstance(x, torch.Tensor) or x.dtype != torch.uint8:
-        raise TypeError("expected a uint8 torch.Tensor")
-    if planar:
-        ok = x.ndim == 4 and x.shape[1] == 3 and x.shape[3] == LANES
-        want = "(B, 3, R, 128)"
-    else:
-        ok = (x.ndim == 4 and x.shape[3] == 3
-              and (x.shape[1] * x.shape[2]) % LANES == 0)
-        want = "(B, H, W, 3) with H*W a multiple of 128"
-    if not ok:
-        raise ValueError(f"expected {want} tiles, got {tuple(x.shape)}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {x.device}")
-    if x.device.type == "cuda" and not x.is_contiguous():
-        raise ValueError("the CUDA kernel takes contiguous tiles")
-
-
 def _launch(x, planar: bool, stain_matrix_tgt, max_c_target,
             luminosity_threshold: float = 0.8,
             angular_percentile: float = 99.0, q_conc: float = 99.0,
@@ -403,29 +367,19 @@ def _launch(x, planar: bool, stain_matrix_tgt, max_c_target,
     global launches
     from stainlib_tpu_torch.kernels import _build
 
-    lib = _build.load_library()
-    B = x.shape[0]
-    n_pix = x.shape[2] * x.shape[3] if planar else x.shape[1] * x.shape[2]
-    split = _stride_split(n_pix // LANES, fit_stride)
-    bs, step, blocks = (split if split is not None
-                        else (n_pix // LANES, n_pix // LANES, 1))
-    dev = x.device
+    B, dev = x.shape[0], x.device
+    n_pix = _n_pix(x, planar)
     scal = _target_scalars(stain_matrix_tgt, max_c_target, B, dev)
-    lut = _tables(dev)
     out = torch.empty_like(x)
     pix_stride, ch_stride = (1, n_pix) if planar else (3, 1)
-    with torch.cuda.device(dev):
-        err = lib.macenko_normalize_launch(
-            dev.index, x.data_ptr(), out.data_ptr(), scal.data_ptr(),
-            lut.data_ptr(),
-            B, n_pix, pix_stride, ch_stride, blocks, bs * LANES,
-            step * LANES, _y_threshold(luminosity_threshold), regularizer,
-            (100.0 - angular_percentile) / 100.0, angular_percentile / 100.0,
-            q_conc / 100.0, max(n_bisect - 4, 8), n_bisect,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"macenko_normalize kernel launch failed: "
-                           f"{_build.error_string(err)} ({err})")
+    _build.launch("macenko_normalize_launch", dev, x.data_ptr(),
+                  out.data_ptr(), scal.data_ptr(), _tables(dev).data_ptr(),
+                  B, n_pix, pix_stride, ch_stride,
+                  *_sample_args(n_pix, fit_stride),
+                  _y_threshold(luminosity_threshold), regularizer,
+                  (100.0 - angular_percentile) / 100.0,
+                  angular_percentile / 100.0, q_conc / 100.0,
+                  max(n_bisect - 4, 8), n_bisect)
     launches += 1
     return out
 

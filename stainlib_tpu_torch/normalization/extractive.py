@@ -1,14 +1,12 @@
-"""Extractive (Macenko) stain normalization, batched end to end.
+"""Extractive (Macenko / Vahadane) stain normalization, batched end to end.
 
-Port of the JAX package's ``normalization/extractive.py:35-115,202-206``,
+Port of the JAX package's ``normalization/extractive.py:29-115,202-206``,
 the batched re-design of ``ExtractiveStainNormalizer``
 (``stainlib/normalization/normalizer.py:16-50``): fit stores the target
 stain matrix and the 99th-percentile concentration per stain; transform
 re-estimates the source stain matrix per image, solves the exact lasso,
 rescales by maxC_target / maxC_source and reconstructs
 ``255 * exp(-C @ M_target)``.
-
-Only ``method="macenko"`` is ported so far.
 """
 
 from __future__ import annotations
@@ -18,9 +16,15 @@ from typing import NamedTuple
 import torch
 
 from stainlib_tpu_torch.extraction.macenko import stain_matrix_macenko
+from stainlib_tpu_torch.extraction.vahadane import stain_matrix_vahadane
 from stainlib_tpu_torch.ops.colorspace import to_uint8
 from stainlib_tpu_torch.ops.lasso import get_concentrations
 from stainlib_tpu_torch.ops.percentile import percentile
+
+_EXTRACTORS = {
+    "macenko": stain_matrix_macenko,
+    "vahadane": stain_matrix_vahadane,
+}
 
 
 class ExtractiveParams(NamedTuple):
@@ -31,13 +35,9 @@ class ExtractiveParams(NamedTuple):
 
 
 def check_method(method: str) -> str:
-    """Lower-cased method name; raises for methods the port lacks."""
+    """Lower-cased method name; raises ``KeyError`` for unknown methods."""
     method = method.lower()
-    if method == "vahadane":
-        raise NotImplementedError(
-            "method='vahadane' is not ported yet: ROADMAP.md queue 1, "
-            "item 5 (Vahadane) ports it")
-    if method != "macenko":
+    if method not in _EXTRACTORS:
         raise KeyError(method)
     return method
 
@@ -45,8 +45,7 @@ def check_method(method: str) -> str:
 def fit(target_rgb, method: str = "macenko", regularizer: float = 0.01,
         **extractor_kwargs) -> ExtractiveParams:
     """Fit to a target image (..., H, W, 3); ``normalizer.py:27-37``."""
-    check_method(method)
-    M = stain_matrix_macenko(target_rgb, **extractor_kwargs)
+    M = _EXTRACTORS[check_method(method)](target_rgb, **extractor_kwargs)
     C = get_concentrations(target_rgb, M, regularizer)
     C = C.reshape(C.shape[:-3] + (-1, 2))
     max_c = percentile(C, 99.0, axis=-2)
@@ -80,8 +79,7 @@ def estimate_source(rgb, method: str = "macenko", regularizer: float = 0.01,
                     **extractor_kwargs):
     """Per-image source estimation, (stain matrix, 99th-pct maxC) — the
     half of ``transform`` at ``normalizer.py:45-48`` with nothing applied."""
-    check_method(method)
-    M_src = stain_matrix_macenko(rgb, **extractor_kwargs)
+    M_src = _EXTRACTORS[check_method(method)](rgb, **extractor_kwargs)
     C = get_concentrations(rgb, M_src, regularizer)
     max_c_src = percentile(C.reshape(C.shape[:-3] + (-1, 2)), 99.0, axis=-2)
     return M_src, max_c_src

@@ -5,6 +5,7 @@ from stainlib_tpu_torch.ops.colorspace import (
     rgb_to_od,
     to_uint8,
 )
+from stainlib_tpu_torch.ops.dictlearn import fit_stain_dictionary
 from stainlib_tpu_torch.ops.lasso import get_concentrations, nonneg_lasso_k2
 from stainlib_tpu_torch.ops.linalg3 import eigh3x3
 from stainlib_tpu_torch.ops.percentile import masked_percentile, percentile

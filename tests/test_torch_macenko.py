@@ -179,8 +179,9 @@ def test_raise_contract():
         norm.transform(np.zeros((8, 8, 3), np.float32))
     with pytest.raises(Exception, match="not recognized"):
         tsl.ExtractiveStainNormalizer("nope", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsl.ExtractiveStainNormalizer("vahadane", device="cpu")
+    # Both methods of the reference are ported.
+    assert tsl.ExtractiveStainNormalizer("Vahadane",
+                                         device="cpu").method == "vahadane"
 
 
 def test_default_device_is_cuda_and_never_falls_back():

@@ -1,0 +1,128 @@
+"""The hand-written CUDA Vahadane kernels (K2 fit+transform, K8
+dictionary) and the fixed-matrix apply kernel (K9) against their plain
+PyTorch versions.
+
+Needs a CUDA device (marker ``cuda``; every test skips without one). The
+card has no jax, so this file imports only torch, numpy and the port. On
+the card:
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_vahadane_cuda.py
+
+Tolerances: uint8 outputs at most 1 step apart on under 0.1% of the bytes;
+stain matrices at atol 1e-5. Kernel and plain version differ only in the
+order of their float32 sums (moments, the nine BCD sums per iteration).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from stainlib_tpu_torch.kernels import fused_stain as fs
+from stainlib_tpu_torch.kernels import vahadane_fused as vf
+from stainlib_tpu_torch.normalization import extractive
+from synth import he_batch, he_patch
+
+VFAST = dict(fit_stride=2, num_iters=8, n_bisect=10)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _params(device):
+    p = extractive.fit(torch.from_numpy(he_patch(256, 256, seed=90)),
+                       method="vahadane")
+    return p.stain_matrix_target.to(device), p.max_c_target.to(device)
+
+
+def _u8_close(got, want):
+    d = (got.int() - want.int()).abs()
+    assert d.max() <= 1 and (d > 0).float().mean() < 1e-3, (
+        int(d.max()), float((d > 0).float().mean()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side,batch", [(256, 8), (512, 2), (32, 8)])
+@pytest.mark.parametrize("kw", [{}, VFAST], ids=["fs1", "fs2"])
+def test_cuda_kernels_match_plain_versions(cuda, side, batch, kw):
+    M, mc = _params(cuda)
+    rgb = torch.from_numpy(he_batch(batch, side, side, seed=97)).to(cuda)
+    planar = fs.to_planar(rgb).contiguous()
+    got = vf.vahadane_normalize(rgb, M, mc, **kw)
+    _u8_close(got, vf.vahadane_normalize_ref(rgb, M, mc, **kw))
+    assert torch.equal(fs.from_planar(
+        vf.vahadane_normalize_planar(planar, M, mc, **kw), side, side), got)
+
+    dict_kw = dict(fit_stride=kw.get("fit_stride", 1),
+                   num_iters=kw.get("num_iters", 12),
+                   n_bisect=kw.get("n_bisect", 14))
+    m_got = vf.vahadane_stain_matrix_planar(planar, **dict_kw)
+    m_want = vf.vahadane_stain_matrix_planar_ref(planar, **dict_kw)
+    assert float((m_got - m_want).abs().max()) <= 1e-5
+
+    k9 = fs.fused_normalize_planar(planar, m_want, M, mc)
+    _u8_close(k9, fs.fused_normalize_planar_ref(planar, m_want, M, mc))
+    assert torch.equal(
+        fs.fused_normalize(rgb, m_want, M, mc),
+        fs.from_planar(k9, side, side))
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_deterministic_and_per_tile(cuda):
+    """Identical bytes on a second run; a tile's output does not depend on
+    its batch neighbours; an empty-mask tile gives white and NaN rows."""
+    M, mc = _params(cuda)
+    tiles = he_batch(8, 256, 256, seed=98)
+    tiles[5] = 255
+    rgb = torch.from_numpy(tiles).to(cuda)
+    planar = fs.to_planar(rgb).contiguous()
+    a = vf.vahadane_normalize(rgb, M, mc, **VFAST)
+    assert torch.equal(a, vf.vahadane_normalize(rgb, M, mc, **VFAST))
+    one = vf.vahadane_normalize(rgb[3:4].contiguous(), M, mc, **VFAST)
+    assert torch.equal(one[0], a[3])
+    assert (a[5] == 255).all()
+    m = vf.vahadane_stain_matrix_planar(planar)
+    assert torch.allclose(m, vf.vahadane_stain_matrix_planar(planar),
+                          rtol=0, atol=0, equal_nan=True)
+    assert torch.isnan(m[5]).all() and not torch.isnan(m[:5]).any()
+    m[5] = M
+    k9 = fs.fused_normalize_planar(planar, m, M, mc)
+    assert torch.equal(k9, fs.fused_normalize_planar(planar, m, M, mc))
+    assert torch.equal(
+        fs.fused_normalize_planar(planar[3:4].contiguous(), m[3:4], M,
+                                  mc)[0], k9[3])
+
+
+@pytest.mark.cuda
+def test_cuda_launch_counters(cuda):
+    """Each wrapper counts its own kernel's launches, once per call."""
+    M, mc = _params(cuda)
+    rgb = torch.from_numpy(he_batch(2, 256, 256, seed=99)).to(cuda)
+    planar = fs.to_planar(rgb).contiguous()
+    before = (vf.launches, vf.dict_launches, fs.launches)
+    vf.vahadane_normalize(rgb, M, mc, **VFAST)
+    assert (vf.launches, vf.dict_launches, fs.launches) == (
+        before[0] + 1, before[1], before[2])
+    vf.vahadane_normalize_planar_2k(planar, M, mc)
+    assert (vf.launches, vf.dict_launches, fs.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    vf.vahadane_normalize_ref(rgb, M, mc, **VFAST)
+    assert (vf.launches, vf.dict_launches, fs.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_reject_strided_input(cuda):
+    M, mc = _params(cuda)
+    rgb = torch.from_numpy(he_batch(2, 256, 256, seed=99)).to(cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        vf.vahadane_normalize(rgb.transpose(1, 2), M, mc)
+    with pytest.raises(ValueError, match="contiguous"):
+        vf.vahadane_stain_matrix_planar(fs.to_planar(rgb))
+    with pytest.raises(ValueError, match="contiguous"):
+        fs.fused_normalize_planar(fs.to_planar(rgb), M.expand(2, 2, 3), M, mc)
+    out = np.asarray(vf.vahadane_normalize(rgb, M, mc).cpu())
+    assert out.dtype == np.uint8 and out.shape == (2, 256, 256, 3)
