@@ -2,15 +2,24 @@
 
     python3 chip_smoke.py
 
-Drives ``stainlib_tpu_torch``'s two normalize paths on the card, on
-256x256 uint8 H&E tiles (random synthetic tiles from a seed):
+Drives ``stainlib_tpu_torch``'s normalize paths on the card, on uint8
+H&E images (random synthetic images from a seed):
 
 * Macenko: the drop-in ``ExtractiveStainNormalizer("macenko")`` and the
-  batched ``macenko_normalize`` entry (kernel K1);
+  batched ``macenko_normalize`` entry (kernel K1), 256x256 tiles;
 * Vahadane: the drop-in ``ExtractiveStainNormalizer("vahadane")``, the
   batched ``vahadane_normalize`` entry (kernel K2) and the two-kernel
   ``vahadane_normalize_planar_2k`` (dictionary kernel K8, then the
-  fixed-matrix apply kernel K9).
+  fixed-matrix apply kernel K9), 256x256 tiles;
+* large fields: the drop-in Macenko and Vahadane ``transform`` of one
+  1024x1024 and one 2048x2048 image, the tiled route (the fit kernel K4
+  on the grid subsample for Macenko, then the fixed-matrix kernel K3 on
+  the whole field);
+* the eigenplane kernel K10 (``eigenplane``, no drop-in caller) on 256x256
+  tiles;
+* Reinhard: the drop-in ``ReinhardStainNormalizer`` on one 256x256 image
+  and the batched ``reinhard_normalize`` entry (kernel K5) on 256x256 and
+  512x512 tiles.
 
 It builds the hand-written CUDA kernels from the sources in the checkout,
 counts each kernel's launches over its path, holds every kernel against
@@ -41,6 +50,7 @@ import torch
 SEED = 20261016
 B, SIDE = 256, 256  # the batched main path: 256 tiles of 256x256
 B_LARGE, SIDE_LARGE = 16, 512
+FIELDS = (1024, 2048)  # large fields: the API's tiled route
 FAST = dict(fit_stride=2, n_bisect=10)  # the API's Macenko knobs at >= 256^2
 VFAST = dict(fit_stride=2, num_iters=8, n_bisect=10)  # ... and Vahadane's
 REPS = 15
@@ -133,8 +143,9 @@ def run(dev) -> int:
     from stainlib_tpu_torch.kernels import _build
     from stainlib_tpu_torch.kernels import fused_stain as fs
     from stainlib_tpu_torch.kernels import macenko_fused as mf
+    from stainlib_tpu_torch.kernels import reinhard_fused as rf
     from stainlib_tpu_torch.kernels import vahadane_fused as vf
-    from stainlib_tpu_torch.normalization import extractive
+    from stainlib_tpu_torch.normalization import extractive, reinhard
 
     assert "jax" not in sys.modules, "the port imported jax"
 
@@ -157,7 +168,7 @@ def run(dev) -> int:
     batch_np = tiles(B, SIDE, SEED + 1)
     batch = torch.from_numpy(batch_np).to(dev)
     planar = mf.to_planar(batch).contiguous()
-    big = torch.from_numpy(tiles(B_LARGE, SIDE_LARGE, SEED + 7)).to(dev)
+    big512 = torch.from_numpy(tiles(B_LARGE, SIDE_LARGE, SEED + 7)).to(dev)
     kernels = []
 
     # ---- Macenko (K1) -----------------------------------------------------
@@ -219,9 +230,9 @@ def run(dev) -> int:
     log(6, "two K1 runs byte-identical")
 
     # 7. 512^2 tiles: kernel against plain version.
-    got = mf.macenko_normalize(big, params.stain_matrix_target,
+    got = mf.macenko_normalize(big512, params.stain_matrix_target,
                                params.max_c_target, **FAST)
-    ref = mf.macenko_normalize_ref(big, params.stain_matrix_target,
+    ref = mf.macenko_normalize_ref(big512, params.stain_matrix_target,
                                    params.max_c_target, **FAST)
     mx7, share7, _ = compare(got, ref)
     assert mx7 <= 1 and share7 < 1e-3, (mx7, share7)
@@ -302,8 +313,8 @@ def run(dev) -> int:
             f"share>1<1e-2)")
 
     # 13. 512^2 tiles: K2 against its plain version.
-    got = vf.vahadane_normalize(big, M, mc, **VFAST)
-    ref = vf.vahadane_normalize_ref(big, M, mc, **VFAST)
+    got = vf.vahadane_normalize(big512, M, mc, **VFAST)
+    ref = vf.vahadane_normalize_ref(big512, M, mc, **VFAST)
     mx13, share13, _ = compare(got, ref)
     assert mx13 <= 1 and share13 < 1e-3, (mx13, share13)
     k2_err = max(k2_err, mx13)
@@ -374,6 +385,231 @@ def run(dev) -> int:
              launches=v_launches["k9"], max_abs_err=mx15,
              ms=min(t9[0]), plain_ms=min(t9[1])),
     ]
+
+    # ---- Large fields: the tiled route (K4, K3) ---------------------------
+    # The main path, counted: the drop-in Macenko and Vahadane transform of
+    # one 1024^2 and one 2048^2 image. Macenko estimates with K4 on the grid
+    # subsample; both apply with K3 on the whole field.
+    fields = {side: tiles(1, side, SEED + side)[0] for side in FIELDS}
+    mf.matrix_launches = mf.fit_launches = 0
+    dropin = {(m, side): nrm.transform(img)
+              for m, nrm in (("macenko", norm), ("vahadane", vnorm))
+              for side, img in fields.items()}
+    torch.cuda.synchronize()
+    t_launches = dict(k3=mf.matrix_launches, k4=mf.fit_launches)
+
+    # 19. The drop-in route is transform_tiled at the API's grid stride.
+    assert t_launches == dict(k3=4, k4=2), t_launches
+    route = {}
+    for (m, side), got in dropin.items():
+        assert got.dtype == np.uint8 and got.shape == (side, side, 3)
+        p = params if m == "macenko" else vparams
+        x = torch.from_numpy(fields[side]).to(dev)
+        s = extractive.tiled_est_stride(side, side)
+        want = extractive.transform_tiled(p, x, method=m, est_stride=s)
+        assert (want.cpu().numpy() == got).all(), (m, side)
+        blocks = extractive.transform_tiled(p, x, method=m, est_stride=s,
+                                            block=512)
+        assert torch.equal(blocks, want), ("blockified K3 differs", m, side)
+        route[(m, side)] = (p, x, s, want)
+    log(19, f"drop-in transform of {'^2 and '.join(map(str, FIELDS))}^2 "
+            f"fields, Macenko and Vahadane: uint8, equal to transform_tiled "
+            f"at the API's est_stride and to its 512^2-blockified form; "
+            f"main-path launches K3={t_launches['k3']} "
+            f"K4={t_launches['k4']}")
+
+    # 20. The tiled route against the functional transform on the full
+    # field (tests/test_tiled_transform.py:99-106's budget).
+    for (m, side), (p, x, s, got) in route.items():
+        mx20, share20, over20 = compare(got, extractive.transform(
+            p, x[None], method=m)[0])
+        assert mx20 <= 3 and over20 < 1e-2, (m, side, mx20, over20)
+        log(20, f"tiled {m} {side}^2 (est_stride={s}) vs functional "
+                f"extractive.transform: max={mx20} u8, share differing="
+                f"{share20:.3e}, share>1={over20:.3e} (gate: max<=3, "
+                f"share>1<1e-2)")
+
+    # 21. K3 and K4 against their plain versions on the same CUDA tensors:
+    # the main path's shapes (one subsample, one whole field) and B tiles.
+    M_mac, mc_mac = params.stain_matrix_target, params.max_c_target
+    field = torch.from_numpy(fields[FIELDS[-1]]).to(dev)[None]
+    stride = extractive.tiled_est_stride(FIELDS[-1], FIELDS[-1])
+    sub = field[:, ::stride, ::stride].contiguous()  # the route's subsample
+    sub_planar = fs.to_planar(sub).contiguous()
+    k4_err = 0.0
+    for pl in (sub_planar, planar):
+        Mk, mck = mf.macenko_fit_planar(pl)
+        Mp, mcp = mf.macenko_fit_planar_ref(pl)
+        e_rows = float((Mk - Mp).abs().max())
+        e_maxc = float(((mck - mcp).abs() / mcp.abs()).max())
+        assert e_rows <= 1e-5 and e_maxc <= 1e-5, (e_rows, e_maxc)
+        k4_err = max(k4_err, e_rows)
+        log(21, f"K4 vs plain B={pl.shape[0]} {pl.shape[2] * 128} px: "
+                f"max |rows| diff {e_rows:.3e} (atol 1e-5), maxC rel "
+                f"{e_maxc:.3e} (rtol 1e-5)")
+    Ms, mcs = mf.macenko_fit_planar(sub_planar)
+    k3_args = (Ms, mcs, M_mac, mc_mac)
+    k3 = mf.normalize_with_matrix(field, *k3_args)
+    mx21, share21, _ = compare(k3, mf.normalize_with_matrix_ref(field,
+                                                               *k3_args))
+    Mt, mct = mf.macenko_fit_planar(planar)
+    k3b = mf.normalize_with_matrix_planar(planar, Mt, mct, M_mac, mc_mac)
+    mx21b, share21b, _ = compare(k3b, mf.normalize_with_matrix_planar_ref(
+        planar, Mt, mct, M_mac, mc_mac))
+    assert max(mx21, mx21b) <= 1 and max(share21, share21b) < 1e-3, (
+        mx21, share21, mx21b, share21b)
+    k3_err = max(mx21, mx21b)
+    log(21, f"K3 vs plain {FIELDS[-1]}^2 field: max={mx21} u8, share "
+            f"differing={share21:.3e}; B={B} {SIDE}^2 planar: max={mx21b} "
+            f"u8, share differing={share21b:.3e} (gate: max<=1, "
+            f"share<1e-3)")
+
+    # 22. Determinism.
+    assert torch.equal(mf.normalize_with_matrix(field, *k3_args), k3)
+    assert torch.equal(mf.macenko_fit_planar(planar)[0], Mt)
+    assert (norm.transform(fields[FIELDS[-1]])
+            == dropin[("macenko", FIELDS[-1])]).all()
+    log(22, "two runs of K3, K4 and the tiled drop-in each byte-identical")
+
+    # 23. Timing, kernel and plain in turns: the main path's shapes (K4 on
+    # one subsample, K3 on one field) and B tiles of 256^2.
+    t4 = time_pair(lambda: mf.macenko_fit_planar(sub_planar),
+                   lambda: mf.macenko_fit_planar_ref(sub_planar))
+    t4b = time_pair(lambda: mf.macenko_fit_planar(planar),
+                    lambda: mf.macenko_fit_planar_ref(planar))
+    t3 = time_pair(lambda: mf.normalize_with_matrix(field, *k3_args),
+                   lambda: mf.normalize_with_matrix_ref(field, *k3_args))
+    t3b = time_pair(
+        lambda: mf.normalize_with_matrix_planar(planar, Mt, mct, M_mac,
+                                                mc_mac),
+        lambda: mf.normalize_with_matrix_planar_ref(planar, Mt, mct, M_mac,
+                                                    mc_mac))
+    for label, ((ka, kb), (pa, pb)) in (
+            (f"K4 B=1 {SIDE}^2 subsample", t4), (f"K4 B={B} {SIDE}^2", t4b),
+            (f"K3 {FIELDS[-1]}^2 field", t3), (f"K3 B={B} {SIDE}^2", t3b)):
+        log(23, f"{label}, median of {REPS} CUDA-event runs (plain, "
+                f"kernel, kernel, plain): kernel {ka:.3f}/{kb:.3f} ms; "
+                f"plain {pa:.3f}/{pb:.3f} ms; card '{smi}'")
+    kernels += [
+        dict(name="normalize_with_matrix_planar", route="cuda",
+             source="stainlib_tpu_torch/kernels/csrc/macenko_fused.cu",
+             replaces="stainlib_tpu/kernels/macenko_fused.py:936",
+             launches=t_launches["k3"], max_abs_err=k3_err,
+             ms=min(t3[0]), plain_ms=min(t3[1])),
+        dict(name="macenko_fit_planar", route="cuda",
+             source="stainlib_tpu_torch/kernels/csrc/macenko_fused.cu",
+             replaces="stainlib_tpu/kernels/macenko_fused.py:688",
+             launches=t_launches["k4"], max_abs_err=k4_err,
+             ms=min(t4[0]), plain_ms=min(t4[1])),
+    ]
+
+    # ---- K10: eigenplane --------------------------------------------------
+    # No drop-in caller: the path is the entry itself on B tiles, counted.
+    mf.eigenplane_launches = 0
+    V = mf.eigenplane(planar)
+    torch.cuda.synchronize()
+    k10_launches = mf.eigenplane_launches
+
+    # 24. K10 against its plain version; determinism; timing.
+    assert k10_launches == 1 and V.shape == (B, 3, 2)
+    assert torch.isfinite(V).all()
+    e10 = float((V - mf.eigenplane_ref(planar)).abs().max())
+    assert e10 <= 1e-6, e10
+    assert torch.equal(mf.eigenplane(planar), V)
+    t10 = time_pair(lambda: mf.eigenplane(planar),
+                    lambda: mf.eigenplane_ref(planar))
+    (ka, kb), (pa, pb) = t10
+    log(24, f"K10 eigenplane B={B} {SIDE}^2: max |V - plain| = {e10:.3e} "
+            f"(atol 1e-6), rerun identical, main-path launches="
+            f"{k10_launches}; kernel {ka:.3f}/{kb:.3f} ms, plain "
+            f"{pa:.3f}/{pb:.3f} ms (plain, kernel, kernel, plain, median "
+            f"of {REPS}); card '{smi}'")
+    kernels.append(dict(
+        name="eigenplane", route="cuda",
+        source="stainlib_tpu_torch/kernels/csrc/macenko_fused.cu",
+        replaces="stainlib_tpu/kernels/macenko_fused.py:498",
+        launches=k10_launches, max_abs_err=e10, ms=min(t10[0]),
+        plain_ms=min(t10[1])))
+
+    # ---- Reinhard (K5) ----------------------------------------------------
+    # The main path, counted: the drop-in class on one 256^2 image, then
+    # the batched entry on B tiles of 256^2 and B_LARGE of 512^2.
+    rf.launches = 0
+    rnorm = st.ReinhardStainNormalizer(device=dev)
+    rnorm.fit(target)
+    rsingle = rnorm.transform(batch_np[0])
+    means = torch.from_numpy(rnorm.target_means).to(dev)
+    stds = torch.from_numpy(rnorm.target_stds).to(dev)
+    rout = rf.reinhard_normalize(batch, means, stds)
+    rbig = rf.reinhard_normalize(big512, means, stds)
+    torch.cuda.synchronize()
+    r_launches = rf.launches
+
+    # 25. Drop-in path.
+    assert r_launches == 3, r_launches
+    assert rsingle.dtype == np.uint8 and rsingle.shape == (SIDE, SIDE, 3)
+    assert np.isfinite(rnorm.target_means).all()
+    assert (rsingle == rout[0].cpu().numpy()).all(), (
+        "drop-in Reinhard transform differs from the batched kernel")
+    log(25, f"drop-in Reinhard fit+transform {SIDE}x{SIDE}: out "
+            f"{rsingle.dtype} {rsingle.shape}, target_means="
+            f"{np.round(rnorm.target_means, 4).tolist()} target_stds="
+            f"{np.round(rnorm.target_stds, 4).tolist()}; main-path "
+            f"launches={r_launches}")
+
+    # 26. K5 against its plain version, at both tile sizes.
+    mx26, share26, _ = compare(rout, rf.reinhard_normalize_ref(batch, means,
+                                                               stds))
+    mx26b, share26b, _ = compare(rbig, rf.reinhard_normalize_ref(
+        big512, means, stds))
+    assert max(mx26, mx26b) <= 1 and max(share26, share26b) < 1e-3, (
+        mx26, share26, mx26b, share26b)
+    log(26, f"K5 vs plain B={B} {SIDE}^2: max={mx26} u8, share differing="
+            f"{share26:.3e}; B={B_LARGE} {SIDE_LARGE}^2: max={mx26b} u8, "
+            f"share differing={share26b:.3e} (gate: max<=1, share<1e-3)")
+
+    # 27. K5 against the functional reinhard.transform
+    # (tests/test_reinhard_fused.py:23-24's budget). The gate holds the
+    # functional path evaluated on the CPU, where the tests hold it to the
+    # JAX package; its evaluation on the card is reported beside it.
+    rparams = reinhard.ReinhardParams(means, stds)
+    cpu_params = reinhard.ReinhardParams(means.cpu(), stds.cpu())
+    want_cpu = reinhard.transform(cpu_params, batch.cpu())
+    mx27, share27, over27 = compare(rout.cpu(), want_cpu)
+    assert mx27 <= 3 and share27 < 1e-2, (mx27, share27)
+    mx27c, share27c, over27c = compare(rout, reinhard.transform(rparams,
+                                                                batch))
+    assert share27c < 1e-2, share27c
+    log(27, f"K5 vs functional reinhard.transform on the CPU: max={mx27} "
+            f"u8, share differing={share27:.3e}, share>1={over27:.3e} "
+            f"(gate: <=1 on >99%, max<=3); vs the functional path on the "
+            f"card: max={mx27c} u8, share differing={share27c:.3e}, "
+            f"share>1={over27c:.3e}")
+
+    # 28. Determinism.
+    assert torch.equal(rf.reinhard_normalize(batch, means, stds), rout)
+    assert torch.equal(rf.reinhard_normalize_planar(
+        planar, means, stds), fs.to_planar(rout))
+    log(28, "two K5 runs byte-identical; planar entry identical")
+
+    # 29. Timing at the main path's shapes, kernel and plain in turns.
+    t5 = time_pair(lambda: rf.reinhard_normalize(batch, means, stds),
+                   lambda: rf.reinhard_normalize_ref(batch, means, stds))
+    t5b = time_pair(lambda: rf.reinhard_normalize(big512, means, stds),
+                    lambda: rf.reinhard_normalize_ref(big512, means, stds))
+    for label, ((ka, kb), (pa, pb)), n in ((f"B={B} {SIDE}^2", t5, B),
+                                           (f"B={B_LARGE} {SIDE_LARGE}^2",
+                                            t5b, B_LARGE)):
+        log(29, f"K5 {label}, median of {REPS} CUDA-event runs (plain, "
+                f"kernel, kernel, plain): kernel {ka:.3f}/{kb:.3f} ms = "
+                f"{n / min(ka, kb) * 1e3:.0f} tiles/s; plain "
+                f"{pa:.3f}/{pb:.3f} ms; card '{smi}'")
+    kernels.append(dict(
+        name="reinhard_normalize_planar", route="cuda",
+        source="stainlib_tpu_torch/kernels/csrc/reinhard_fused.cu",
+        replaces="stainlib_tpu/kernels/reinhard_fused.py:197",
+        launches=r_launches, max_abs_err=max(mx26, mx26b), ms=min(t5[0]),
+        plain_ms=min(t5[1])))
 
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,13 +1,15 @@
 """stainlib_tpu_torch — the PyTorch/CUDA port of the JAX package beside it.
 
 Same module paths and function names as the JAX package, which stays the
-reference every module here is tested against. It covers the Macenko and
-Vahadane normalize paths: the functional ops, Macenko and Vahadane
-extraction (with the dictionary learner), extractive fit/transform, the
-drop-in object API, and the fused per-tile kernels
+reference every module here is tested against. It covers the Macenko,
+Vahadane and Reinhard normalize paths: the functional ops, Macenko and
+Vahadane extraction (with the dictionary learner), extractive
+fit/transform with the tiled route for large fields, Reinhard
+fit/transform, the drop-in object API, and the fused kernels
 (``kernels/macenko_fused.py``, ``kernels/vahadane_fused.py``,
-``kernels/fused_stain.py``), hand-written in CUDA C++ for Hopper
-(``kernels/csrc/``) and built with ``nvcc`` at first use.
+``kernels/fused_stain.py``, ``kernels/reinhard_fused.py``), hand-written
+in CUDA C++ for Hopper (``kernels/csrc/``) and built with ``nvcc`` at
+first use.
 
 Importing the package imports ``torch`` only: never jax, never
 the JAX package, and it builds nothing.
@@ -30,6 +32,7 @@ from stainlib_tpu_torch.api import (  # noqa: E402
     LuminosityStandardizer,
     LuminosityThresholdTissueLocator,
     MacenkoStainExtractor,
+    ReinhardStainNormalizer,
     VahadaneStainExtractor,
     get_concentrations,
 )
@@ -44,6 +47,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "ExtractiveStainNormalizer",
+    "ReinhardStainNormalizer",
     "MacenkoStainExtractor",
     "VahadaneStainExtractor",
     "LuminosityStandardizer",

@@ -1,11 +1,10 @@
 """Drop-in object API mirroring the reference's public classes.
 
-Port of the JAX package's ``api.py:36-201`` (the Macenko and Vahadane
-parts; ``ReinhardStainNormalizer`` is not ported yet). Every
-class keeps the name, constructor, attributes and raise contract of the
-reference (``stainlib/__init__.py:19-30``): single uint8 numpy images go
-in and come out. Each call runs on an explicit ``device``, which defaults
-to ``"cuda"``; nothing falls back to the CPU by itself.
+Port of the JAX package's ``api.py``. Every class keeps the name,
+constructor, attributes and raise contract of the reference
+(``stainlib/__init__.py:19-30``): single uint8 numpy images go in and come
+out. Each call runs on an explicit ``device``, which defaults to
+``"cuda"``; nothing falls back to the CPU by itself.
 
 Class -> reference mapping:
   * ``LuminosityThresholdTissueLocator``  -> ``stain_utils.py:29-48``
@@ -13,6 +12,7 @@ Class -> reference mapping:
   * ``MacenkoStainExtractor``             -> ``macenko_stain_extractor.py:5-44``
   * ``VahadaneStainExtractor``            -> ``vahadane_stain_extractor.py:16-43``
   * ``ExtractiveStainNormalizer``         -> ``normalizer.py:16-50``
+  * ``ReinhardStainNormalizer``           -> ``normalizer.py:54-94``
 """
 
 from __future__ import annotations
@@ -24,8 +24,10 @@ from stainlib_tpu_torch.exceptions import TissueMaskException
 from stainlib_tpu_torch.extraction.macenko import stain_matrix_macenko
 from stainlib_tpu_torch.extraction.vahadane import stain_matrix_vahadane
 from stainlib_tpu_torch.kernels.macenko_fused import macenko_normalize
+from stainlib_tpu_torch.kernels.reinhard_fused import reinhard_normalize
 from stainlib_tpu_torch.kernels.vahadane_fused import vahadane_normalize
 from stainlib_tpu_torch.normalization import extractive as _extractive
+from stainlib_tpu_torch.normalization import reinhard as _reinhard
 from stainlib_tpu_torch.ops import tissue as _tissue
 from stainlib_tpu_torch.ops.colorspace import to_uint8
 from stainlib_tpu_torch.ops.lasso import get_concentrations as _get_concentrations
@@ -66,6 +68,15 @@ def _use_fused(I, device) -> bool:
     return (torch.device(device).type == "cuda"
             and n_pixels % 128 == 0
             and n_pixels <= 512 * 512)
+
+
+def _use_tiled(I, device) -> bool:
+    """Images over 512^2 pixels on a CUDA device take the tiled route
+    (``api.py:82-89``): one estimate on a grid subsample, then the
+    fixed-matrix kernel on every pixel (``extractive.transform_tiled``).
+    On the CPU they take the functional path."""
+    return (torch.device(device).type == "cuda"
+            and I.shape[0] * I.shape[1] > 512 * 512)
 
 
 def _fast_fit_kwargs(I, method: str) -> dict:
@@ -175,6 +186,46 @@ class ExtractiveStainNormalizer:
             out = fused(x[None], self._params.stain_matrix_target,
                         self._params.max_c_target,
                         **_fast_fit_kwargs(I, self.method))[0]
+        elif _use_tiled(I, self.device):
+            out = _extractive.transform_tiled(
+                self._params, x, method=self.method,
+                est_stride=_extractive.tiled_est_stride(*I.shape[:2]))
         else:
             out = _extractive.transform(self._params, x, method=self.method)
+        return out.cpu().numpy()
+
+
+class ReinhardStainNormalizer:
+    """fit/transform Reinhard LAB transfer (``normalizer.py:54-94``)."""
+
+    def __init__(self, target_means=0, target_stds=0, device="cuda"):
+        self.target_means = target_means
+        self.target_stds = target_stds
+        self.device = _device(device)
+        self._params: _reinhard.ReinhardParams | None = None
+
+    def fit(self, target):
+        _check_uint8_image(target)
+        self._params = _reinhard.fit(_tensor(target, self.device))
+        self.target_means = self._params.means.cpu().numpy()
+        self.target_stds = self._params.stds.cpu().numpy()
+
+    def transform(self, I, mask_background: bool = False,
+                  luminosity_threshold: float = 0.8):
+        _check_uint8_image(I)
+        if self._params is None:
+            raise RuntimeError("Call fit(target) before transform().")
+        if mask_background:
+            # The reference's background-masking branch calls
+            # get_tissue_mask, which raises on an empty mask
+            # (normalizer.py:85-90).
+            _require_tissue(I, luminosity_threshold, device=self.device)
+        x = _tensor(I, self.device)
+        if not mask_background and _use_fused(I, self.device):
+            out = reinhard_normalize(x[None], self._params.means,
+                                     self._params.stds)[0]
+        else:
+            out = _reinhard.transform(
+                self._params, x, mask_background=mask_background,
+                luminosity_threshold=luminosity_threshold)
         return out.cpu().numpy()

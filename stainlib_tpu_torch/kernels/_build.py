@@ -63,6 +63,23 @@ _ARGTYPES = {
         _i32, _ptr, _ptr, _ptr, _ptr,  # device, in, out, scal, lut
         _i32, _i32, _i32, _i32,  # batch, n_pix, pix/ch stride
         _f32, _i32, _ptr],  # q, iters, stream
+    "macenko_fit_launch": [
+        _i32, _ptr, _ptr, _ptr,  # device, in, out, luts
+        _i32, _i32, _i32, _i32,  # batch, n_pix, pix/ch stride
+        _f32, _f32, _f32, _f32, _f32,  # y_thr, lam, q_lo, q_hi, q_conc
+        _i32, _i32, _ptr],  # it_angle, it_conc, stream
+    "eigenplane_launch": [
+        _i32, _ptr, _ptr, _ptr,  # device, in, out, luts
+        _i32, _i32, _i32, _i32,  # batch, n_pix, pix/ch stride
+        _f32, _ptr],  # y_thr, stream
+    "matrix_normalize_launch": [
+        _i32, _ptr, _ptr, _ptr, _ptr,  # device, in, out, scal, lut
+        _i32, _i32, _i32, _i32,  # batch, n_pix, pix/ch stride
+        _ptr],  # stream
+    "reinhard_normalize_launch": [
+        _i32, _ptr, _ptr, _ptr, _ptr,  # device, in, out, scal, lin
+        _i32, _i32, _i32, _i32,  # batch, n_pix, pix/ch stride
+        _f32, _f32, _f32, _ptr],  # rank_lo, frac, 1 - frac, stream
 }
 
 

@@ -1,7 +1,10 @@
-// Fused Macenko fit + transform, one thread block per tile (sm_90a).
+// Fused Macenko kernels (sm_90a): the fit + transform (K1), the fit alone
+// (K4), the masked OD moments of the eigenplane (K10), and the fixed-matrix
+// apply (K3).
 //
-// Replaces the Pallas TPU kernel macenko_normalize_planar / _apply_kernel
-// (the JAX package's kernels/macenko_fused.py:413-490, :541-608). Per tile:
+// macenko_apply_kernel, one thread block per tile, replaces the Pallas TPU
+// kernel macenko_normalize_planar / _apply_kernel (the JAX package's
+// kernels/macenko_fused.py:413-490, :541-608). Per tile:
 //   1. ten masked OD moments over the estimation sample;
 //   2. the eigenplane (scalar Newton eigh, one thread, broadcast);
 //   3. the two masked angular percentiles by count bisection, both counted
@@ -21,6 +24,26 @@
 // shared device functions of stain_common.cuh (macenko_rows, conc_maxc,
 // reconstruct), which the Vahadane kernels reuse; stain::Tile there
 // describes the planar / interleaved layouts and the estimation sample.
+//
+// macenko_fit_kernel replaces macenko_fit_planar / _fit_kernel
+// (:628-679, :688-736): phases 1-4 of K1 on the whole tile, writing the
+// stain rows and the two maxC values (8 floats) per tile. Bound and design
+// as K1, without the apply pass.
+//
+// eigenplane_kernel replaces eigenplane / _stats_kernel (:237-248,
+// :498-532): phase 1 alone, the ten moments (count, 3 sums, 6 second
+// moments, double-accumulated) per tile; the wrapper's torch glue makes
+// the covariance and the top-2 eigenplane. One pass over the tile: bound
+// by bytes and the two table gathers per channel.
+//
+// matrix_apply_kernel replaces normalize_with_matrix_planar / the
+// _augment_kernel with estimate=False, recon_in_scal=True (:754-813,
+// :936-991): per pixel, K1's OD, the exact lasso against fixed source rows,
+// the rescale maxC_tgt/maxC_src (a per-image scalar, computed by the
+// wrapper), reconstruction through the target rows. No reduction, so it is
+// launched over (pixel chunks x images) rather than one block per tile:
+// a 2048^2 field is one image. Bound by bytes (3 in, 3 out per pixel) and
+// the per-pixel lasso and three expf.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,8 +57,8 @@ constexpr int kWarps = kThreads / 32;
 
 struct Args {
   const uint8_t* in;
-  uint8_t* out;
-  const float* scal;  // (B, 8): target rows (6), maxC (2)
+  void* out;          // u8 tiles (K1) or (B, 8) / (B, 10) f32 (K4, K10)
+  const float* scal;  // (B, 8): target rows (6), maxC (2); K1 only
   const float* luts;  // (4, 256): OD, then 3 luminance terms
   int n_pix, pix_stride, ch_stride;
   int nblk, blk, stp;
@@ -43,47 +66,115 @@ struct Args {
   int it_angle, it_conc;
 };
 
-__global__ void __launch_bounds__(kThreads, 2) macenko_apply_kernel(Args a) {
-  __shared__ float lut[4][256];
-  __shared__ double dbuf[9 * kWarps];
-  __shared__ float fbuf[2 * kWarps];
-  __shared__ int ibuf[2 * kWarps];
-  __shared__ float v_sh[6];
+struct Shared {
+  double dbuf[9 * kWarps];
+  float lut[4][256];
+  float fbuf[2 * kWarps];
+  int ibuf[2 * kWarps];
+  float v_sh[6];
+};
 
-  const size_t tile_off = (size_t)blockIdx.x * 3 * a.n_pix;
-  const float* scal = a.scal + blockIdx.x * 8;
-  for (int i = threadIdx.x; i < 4 * 256; i += kThreads) lut[i >> 8][i & 255] = a.luts[i];
+__device__ __forceinline__ stain::Tile load_tile(const Args& a, Shared& sh) {
+  for (int i = threadIdx.x; i < 4 * 256; i += kThreads)
+    sh.lut[i >> 8][i & 255] = a.luts[i];
   __syncthreads();
-  const stain::Tile t{a.in + tile_off, lut, a.n_pix, a.pix_stride, a.ch_stride,
-                      a.nblk, a.blk, a.stp, a.y_thr};
+  const size_t tile_off = (size_t)blockIdx.x * 3 * a.n_pix;
+  return stain::Tile{a.in + tile_off, sh.lut, a.n_pix, a.pix_stride,
+                     a.ch_stride, a.nblk, a.blk, a.stp, a.y_thr};
+}
+
+__global__ void __launch_bounds__(kThreads, 2) macenko_apply_kernel(Args a) {
+  __shared__ Shared sh;
+  const stain::Tile t = load_tile(a, sh);
+  const float* scal = a.scal + blockIdx.x * 8;
 
   // Phases 1-3: moments, eigenplane, angular percentiles, stain rows.
   float he[6];
-  stain::macenko_rows<kThreads>(t, a.q_lo, a.q_hi, a.it_angle, fbuf, ibuf,
-                                dbuf, v_sh, he);
+  stain::macenko_rows<kThreads>(t, a.q_lo, a.q_hi, a.it_angle, sh.fbuf,
+                                sh.ibuf, sh.dbuf, sh.v_sh, he);
   // Phase 4: 99th-pct concentrations over the sample.
   const stain::Gram g = stain::gram(he);
   float maxc[2];
-  stain::conc_maxc<kThreads>(t, he, g, a.lam, a.q_conc, a.it_conc, fbuf, ibuf,
-                             maxc);
+  stain::conc_maxc<kThreads>(t, he, g, a.lam, a.q_conc, a.it_conc, sh.fbuf,
+                             sh.ibuf, maxc);
   // Phase 5: rescale + Beer-Lambert reconstruction on every pixel.
-  stain::reconstruct<kThreads>(t, a.out + tile_off, he, g, a.lam, maxc, scal,
-                               scal[6], scal[7]);
+  uint8_t* dst = static_cast<uint8_t*>(a.out) + (size_t)blockIdx.x * 3 * a.n_pix;
+  stain::reconstruct<kThreads>(t, dst, he, g, a.lam, maxc, scal, scal[6],
+                               scal[7]);
 }
 
-}  // namespace
+__global__ void __launch_bounds__(kThreads, 2) macenko_fit_kernel(Args a) {
+  __shared__ Shared sh;
+  const stain::Tile t = load_tile(a, sh);
+  float he[6];
+  stain::macenko_rows<kThreads>(t, a.q_lo, a.q_hi, a.it_angle, sh.fbuf,
+                                sh.ibuf, sh.dbuf, sh.v_sh, he);
+  const stain::Gram g = stain::gram(he);
+  float maxc[2];
+  stain::conc_maxc<kThreads>(t, he, g, a.lam, a.q_conc, a.it_conc, sh.fbuf,
+                             sh.ibuf, maxc);
+  if (threadIdx.x == 0) {
+    float* out = static_cast<float*>(a.out) + blockIdx.x * 8;
+    for (int i = 0; i < 6; ++i) out[i] = he[i];
+    out[6] = maxc[0];
+    out[7] = maxc[1];
+  }
+}
 
-extern "C" cudaError_t macenko_normalize_launch(
-    int device, const void* in, void* out, const void* scal, const void* luts,
-    int batch, int n_pix, int pix_stride, int ch_stride, int nblk, int blk,
-    int stp, float y_thr, float lam, float q_lo, float q_hi, float q_conc,
-    int it_angle, int it_conc, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (batch == 0) return cudaSuccess;
+__global__ void __launch_bounds__(kThreads, 2) eigenplane_kernel(Args a) {
+  __shared__ Shared sh;
+  const stain::Tile t = load_tile(a, sh);
+  float st[10];
+  stain::masked_moments<kThreads>(t, sh.ibuf, sh.dbuf, st);
+  if (threadIdx.x == 0) {
+    float* out = static_cast<float*>(a.out) + blockIdx.x * 10;
+    for (int i = 0; i < 10; ++i) out[i] = st[i];
+  }
+}
+
+// K3. Per-image scalar table (B, 16): [0:6] source rows, [6:8] the rescale
+// maxC_tgt / max(maxC_src, 1e-8), [8:14] target rows, [14] the lasso
+// regularizer, [15] pad. lut: K1's OD table (row 0 of its luts).
+constexpr int kApplyThreads = 256;
+constexpr int kApplyPixels = 4;  // pixels per thread
+constexpr int kMatrixScal = 16;
+
+__global__ void __launch_bounds__(kApplyThreads) matrix_apply_kernel(
+    const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
+    const float* __restrict__ scal, const float* __restrict__ od_lut,
+    int n_pix, int pix_stride, int ch_stride) {
+  __shared__ float lut[1][256];
+  for (int i = threadIdx.x; i < 256; i += kApplyThreads) lut[0][i] = od_lut[i];
+  __syncthreads();
+  const float* s = scal + blockIdx.y * kMatrixScal;
+  float he[6], tgt[6];
+  for (int i = 0; i < 6; ++i) {
+    he[i] = s[i];
+    tgt[i] = s[8 + i];
+  }
+  const float scale1 = s[6], scale2 = s[7], lam = s[14];
+  const stain::Gram g = stain::gram(he);
+  const size_t img_off = (size_t)blockIdx.y * 3 * n_pix;
+  const stain::Tile t{in + img_off, lut, n_pix, pix_stride, ch_stride,
+                      1, n_pix, n_pix, 0.0f};
+  uint8_t* dst = out + img_off;
+  const int stride = gridDim.x * kApplyThreads;
+  for (int p = blockIdx.x * kApplyThreads + threadIdx.x; p < n_pix; p += stride) {
+    float o0, o1, o2, c1, c2;
+    t.od(p, o0, o1, o2);
+    stain::lasso2(o0, o1, o2, he, g, lam, c1, c2);
+    stain::write_pixel(dst + (size_t)p * pix_stride, ch_stride, c1 * scale1,
+                       c2 * scale2, tgt);
+  }
+}
+
+Args make_args(const void* in, void* out, const void* scal, const void* luts,
+               int n_pix, int pix_stride, int ch_stride, int nblk, int blk,
+               int stp, float y_thr, float lam, float q_lo, float q_hi,
+               float q_conc, int it_angle, int it_conc) {
   Args a;
   a.in = static_cast<const uint8_t*>(in);
-  a.out = static_cast<uint8_t*>(out);
+  a.out = out;
   a.scal = static_cast<const float*>(scal);
   a.luts = static_cast<const float*>(luts);
   a.n_pix = n_pix;
@@ -99,7 +190,69 @@ extern "C" cudaError_t macenko_normalize_launch(
   a.q_conc = q_conc;
   a.it_angle = it_angle;
   a.it_conc = it_conc;
+  return a;
+}
+
+}  // namespace
+
+extern "C" cudaError_t macenko_normalize_launch(
+    int device, const void* in, void* out, const void* scal, const void* luts,
+    int batch, int n_pix, int pix_stride, int ch_stride, int nblk, int blk,
+    int stp, float y_thr, float lam, float q_lo, float q_hi, float q_conc,
+    int it_angle, int it_conc, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (batch == 0) return cudaSuccess;
+  const Args a = make_args(in, out, scal, luts, n_pix, pix_stride, ch_stride,
+                           nblk, blk, stp, y_thr, lam, q_lo, q_hi, q_conc,
+                           it_angle, it_conc);
   macenko_apply_kernel<<<batch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t macenko_fit_launch(
+    int device, const void* in, void* out, const void* luts, int batch,
+    int n_pix, int pix_stride, int ch_stride, float y_thr, float lam,
+    float q_lo, float q_hi, float q_conc, int it_angle, int it_conc,
+    void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (batch == 0) return cudaSuccess;
+  // The fit covers the whole tile: a one-block sample.
+  const Args a = make_args(in, out, nullptr, luts, n_pix, pix_stride,
+                           ch_stride, 1, n_pix, n_pix, y_thr, lam, q_lo, q_hi,
+                           q_conc, it_angle, it_conc);
+  macenko_fit_kernel<<<batch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t eigenplane_launch(int device, const void* in, void* out,
+                                         const void* luts, int batch,
+                                         int n_pix, int pix_stride,
+                                         int ch_stride, float y_thr,
+                                         void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (batch == 0) return cudaSuccess;
+  const Args a = make_args(in, out, nullptr, luts, n_pix, pix_stride,
+                           ch_stride, 1, n_pix, n_pix, y_thr, 0.0f, 0.0f,
+                           0.0f, 0.0f, 0, 0);
+  eigenplane_kernel<<<batch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t matrix_normalize_launch(
+    int device, const void* in, void* out, const void* scal, const void* lut,
+    int batch, int n_pix, int pix_stride, int ch_stride, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (batch == 0 || n_pix == 0) return cudaSuccess;
+  const int per_block = kApplyThreads * kApplyPixels;
+  const dim3 grid((n_pix + per_block - 1) / per_block, batch);
+  matrix_apply_kernel<<<grid, kApplyThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out),
+      static_cast<const float*>(scal), static_cast<const float*>(lut), n_pix,
+      pix_stride, ch_stride);
   return cudaGetLastError();
 }
 

@@ -56,8 +56,34 @@ def from_planar(planar, h, w):
     return planar.reshape(planar.shape[0], 3, h, w).permute(0, 2, 3, 1)
 
 
-def _check(x, planar: bool):
-    """Raise unless ``x`` is uint8 tiles a kernel wrapper takes."""
+def blockify(rgb, block: int, pad_value: int = 255):
+    """(B, H, W, 3) -> (B * nh * nw, block, block, 3) spatial blocks, the
+    field padded with ``pad_value`` (white: zero stain concentration) up to
+    a block multiple (``fused_stain.py:295-310``); :func:`unblockify` crops
+    it back off."""
+    B, H, W, C = rgb.shape
+    hp, wp = -H % block, -W % block
+    if hp or wp:
+        padded = rgb.new_full((B, H + hp, W + wp, C), pad_value)
+        padded[:, :H, :W] = rgb
+        rgb = padded
+    nh, nw = (H + hp) // block, (W + wp) // block
+    blocks = rgb.reshape(B, nh, block, nw, block, C).permute(0, 1, 3, 2, 4, 5)
+    return blocks.reshape(B * nh * nw, block, block, C), (nh, nw)
+
+
+def unblockify(blocks, grid, h: int, w: int):
+    """Inverse of :func:`blockify`: reassemble and crop to (B, h, w, 3)."""
+    nh, nw = grid
+    n, block, _, C = blocks.shape
+    x = blocks.reshape(n // (nh * nw), nh, nw, block, block, C)
+    x = x.permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(x.shape[0], nh * block, nw * block, C)[:, :h, :w]
+
+
+def _check(x, planar: bool, lanes: bool = True):
+    """Raise unless ``x`` is uint8 tiles a kernel wrapper takes. ``lanes``:
+    interleaved tiles must hold a multiple of 128 pixels."""
     if not isinstance(x, torch.Tensor) or x.dtype != torch.uint8:
         raise TypeError("expected a uint8 torch.Tensor")
     if planar:
@@ -65,8 +91,9 @@ def _check(x, planar: bool):
         want = "(B, 3, R, 128)"
     else:
         ok = (x.ndim == 4 and x.shape[3] == 3
-              and (x.shape[1] * x.shape[2]) % LANES == 0)
-        want = "(B, H, W, 3) with H*W a multiple of 128"
+              and (not lanes or (x.shape[1] * x.shape[2]) % LANES == 0))
+        want = ("(B, H, W, 3) with H*W a multiple of 128" if lanes
+                else "(B, H, W, 3)")
     if not ok:
         raise ValueError(f"expected {want} tiles, got {tuple(x.shape)}")
     if x.device.type not in ("cpu", "cuda"):
@@ -177,27 +204,38 @@ def _lasso2(od0, od1, od2, h, e, lam):
     return c1, c2
 
 
-def _scale_and_reconstruct(c1, c2, idx, q, n_iters, tgt, max_c):
-    """The fused kernels' last phases: the two q-th percentile
-    concentrations over the pixels ``idx`` (None: all), unmasked, each
-    bracket [0, max]; rescale by ``max_c`` (B, 2) over them; reconstruct
-    through the target rows ``tgt`` (B, 6); clip and truncate to uint8.
-    (B, N) concentrations in, (B, 3, N) uint8 out."""
+def _conc_maxc(c1, c2, idx, q, n_iters):
+    """The two q-th percentile concentrations over the pixels ``idx``
+    (None: all), unmasked, each bracket [0, max]: (B,) each."""
     c1f, c2f = (c1, c2) if idx is None else (c1[:, idx], c2[:, idx])
     B = c1.shape[0]
     n_fit = torch.full((B,), float(c1f.shape[1]), dtype=torch.float32,
                        device=c1.device)
     zero = torch.zeros_like(n_fit)
-    maxc1, maxc2 = _multi_masked_percentile(
+    return _multi_masked_percentile(
         [(c1f, None, n_fit, q, zero, c1f.amax(-1)),
          (c2f, None, n_fit, q, zero, c2f.amax(-1))], n_iters=n_iters)
-    c1s = c1 * (max_c[:, 0] / torch.clamp_min(maxc1, 1e-8))[:, None]
-    c2s = c2 * (max_c[:, 1] / torch.clamp_min(maxc2, 1e-8))[:, None]
+
+
+def _reconstruct_u8(c1s, c2s, tgt):
+    """Rescaled (B, N) concentrations through the target rows ``tgt``
+    (B, 6): ``255 * exp(-C M_tgt)``, clipped and truncated to (B, 3, N)
+    uint8."""
     out = [torch.clamp(255.0 * torch.exp(-(c1s * tgt[:, ch, None]
                                            + c2s * tgt[:, 3 + ch, None])),
                        0.0, 255.0).to(torch.int32).to(torch.uint8)
            for ch in range(3)]
     return torch.stack(out, dim=1)
+
+
+def _scale_and_reconstruct(c1, c2, idx, q, n_iters, tgt, max_c):
+    """The fused kernels' last phases: :func:`_conc_maxc`, rescale by
+    ``max_c`` (B, 2) over it, :func:`_reconstruct_u8`. (B, N)
+    concentrations in, (B, 3, N) uint8 out."""
+    maxc1, maxc2 = _conc_maxc(c1, c2, idx, q, n_iters)
+    c1s = c1 * (max_c[:, 0] / torch.clamp_min(maxc1, 1e-8))[:, None]
+    c2s = c2 * (max_c[:, 1] / torch.clamp_min(maxc2, 1e-8))[:, None]
+    return _reconstruct_u8(c1s, c2s, tgt)
 
 
 # ---------------------------------------------------------------------------

@@ -1,34 +1,43 @@
-"""Fused Macenko fit + transform, one CUDA thread block per tile.
+"""Fused Macenko kernels: fit + transform (K1), fit alone (K4), the
+eigenplane (K10) and the fixed-matrix apply (K3).
 
-Port of the JAX package's ``kernels/macenko_fused.py:541-616``
-(``macenko_normalize_planar``, body ``_apply_kernel`` at ``:413-490``):
-the whole per-tile pipeline of ``ExtractiveStainNormalizer('macenko')``
-(``stainlib/normalization/normalizer.py:39-50`` +
-``macenko_stain_extractor.py:7-44``) in one kernel launch per batch.
+Port of the JAX package's ``kernels/macenko_fused.py``:
+
+* K1 ``macenko_normalize_planar`` (``:541-616``, body ``_apply_kernel``
+  ``:413-490``): the whole per-tile pipeline of
+  ``ExtractiveStainNormalizer('macenko')`` (``stainlib/normalization/
+  normalizer.py:39-50`` + ``macenko_stain_extractor.py:7-44``);
+* K4 ``macenko_fit_planar`` (``:688-736``, body ``_fit_kernel``): K1's
+  phases 1-4, the stain rows and maxC per tile, for the tiled route;
+* K10 ``eigenplane`` (``:498-532``, body ``_stats_kernel``): the masked OD
+  moments per tile, then torch glue to the top-2 eigenplane;
+* K3 ``normalize_with_matrix_planar`` (``:936-991``, body
+  ``_augment_kernel`` with a fixed matrix): lasso against given source
+  rows, rescale, reconstruction through the target, per pixel.
 
 Kernel source note (``csrc/macenko_fused.cu``):
 
-* Replaces the Pallas TPU kernel ``macenko_normalize_planar`` /
-  ``_apply_kernel`` in the JAX package's ``kernels/macenko_fused.py``.
-* Bound: work per pixel, not bytes (2 x 196 KB per 256^2 tile). Per
-  tile it is a chain of about 25 dependent block-wide reductions
-  (moments, angle min/max, the angle and concentration bisection rounds,
-  the successor recoveries) with scalar 3x3 work between them. At
-  ``fit_stride=2, n_bisect=10`` the passes visit 12.5 tiles' worth of
-  pixels, and once two tiles share an SM the time follows that count
-  (measured on an H100: 0.78 ms for 132 tiles, 1.34 ms for 256).
-* Design: one 512-thread block per tile; every phase is a grid-stride
-  pass over the tile's pixels followed by a warp-shuffle + shared-memory
-  reduction in a fixed order (no float atomics, so the output is
-  bit-reproducible). The tile is re-read from device memory on every pass
-  and L2 keeps it close; OD and the luminance terms come from 256-entry
-  tables built here, so the kernel takes no ``log`` per pass and sees the
-  same OD bits as the plain version.
+* Replaces the four Pallas TPU kernels above.
+* Bound: K1 and K4 by work per pixel, not bytes (2 x 196 KB per 256^2
+  tile): a chain of about 25 dependent block-wide reductions (moments,
+  angle min/max, the angle and concentration bisection rounds, the
+  successor recoveries) with scalar 3x3 work between them; once two tiles
+  share an SM the time follows the pass count. K10 is one pass; K3 has no
+  reduction, a lasso and three ``expf`` per pixel.
+* Design: K1, K4, K10 run one 512-thread block per tile; every phase is a
+  strided pass over the tile's pixels followed by a warp-shuffle +
+  shared-memory reduction in a fixed order (no float atomics, so the
+  output is bit-reproducible). The tile is re-read from device memory on
+  every pass and L2 keeps it close; OD and the luminance terms come from
+  256-entry tables built here, so the kernels take no ``log`` per pass and
+  see the same OD bits as the plain versions. K3 runs over (pixel chunks x
+  images), so one large field fills the card.
 
-On a CUDA tensor the wrappers launch the kernel; on a CPU tensor they run
-the plain torch version ``macenko_normalize_planar_ref``, which mirrors
-``_apply_kernel`` step for step and is the kernel's oracle. ``launches``
-counts kernel launches.
+On a CUDA tensor the wrappers launch the kernels; on a CPU tensor they run
+the plain torch versions (``*_ref``), which mirror the TPU kernels step for
+step and are the kernels' oracles. ``launches``, ``fit_launches``,
+``eigenplane_launches`` and ``matrix_launches`` count the launches of K1,
+K4, K10 and K3.
 """
 
 from __future__ import annotations
@@ -40,18 +49,25 @@ import torch
 from stainlib_tpu_torch.kernels.fused_stain import (
     LANES,
     _check,
+    _conc_maxc,
     _lasso2,
     _multi_masked_percentile,
     _n_pix,
     _per_tile,
+    _reconstruct_u8,
     _scale_and_reconstruct,
     _sum64,
     from_planar,
     to_planar,
 )
+from stainlib_tpu_torch.ops.fdiv import fdiv
+from stainlib_tpu_torch.ops.linalg3 import eigh3x3
 
 # Kernel launches since import (or since a caller reset it).
 launches = 0
+matrix_launches = 0
+fit_launches = 0
+eigenplane_launches = 0
 
 # Degree-6 fit of ((c+0.055)/1.055)^2.4 on [0.04045, 1] (max error 7.4e-6),
 # the JAX kernel's mask linearization (macenko_fused.py:54-57), kept so the
@@ -209,10 +225,10 @@ def _eigenplane_scalars(stats, eps=1e-12):
                mx(mx(a12.abs(), a22.abs()), torch.full_like(a00, eps)))
     b00, b01, b02 = a00 / scale, a01 / scale, a02 / scale
     b11, b12, b22 = a11 / scale, a12 / scale, a22 / scale
-    q = (b00 + b11 + b22) / 3.0
+    q = fdiv(b00 + b11 + b22, 3.0)
     c00, c11, c22 = b00 - q, b11 - q, b22 - q
-    p2 = (c00 * c00 + c11 * c11 + c22 * c22
-          + 2.0 * (b01 * b01 + b02 * b02 + b12 * b12)) / 6.0
+    p2 = fdiv(c00 * c00 + c11 * c11 + c22 * c22
+              + 2.0 * (b01 * b01 + b02 * b02 + b12 * b12), 6.0)
     p = torch.sqrt(torch.clamp_min(p2, eps * eps))
     inv_p = 1.0 / p
     d00, d11, d22 = c00 * inv_p, c11 * inv_p, c22 * inv_p
@@ -291,6 +307,17 @@ def _od_and_mask(rgb_planar, luminosity_threshold: float):
     return lut[0][x[:, 0]], lut[0][x[:, 1]], lut[0][x[:, 2]], mask
 
 
+def _masked_moments(od0, od1, od2, mask):
+    """The ten masked OD moments (``_od_moments``, ``macenko_fused.py:93-108``)
+    as a list of (B,): the tissue count, the three OD sums, the upper
+    triangle of the second moments; sums in float64, rounded once."""
+    m = mask.to(torch.float32)
+    return [m.sum(-1)] + [_sum64(m * o) for o in (od0, od1, od2)] + [
+        _sum64(m * a * b)
+        for a, b in ((od0, od0), (od0, od1), (od0, od2),
+                     (od1, od1), (od1, od2), (od2, od2))]
+
+
 def _macenko_rows(od0, od1, od2, mask, angular_percentile: float,
                   n_bisect: int):
     """The Macenko estimate from a tile's estimation sample: masked
@@ -298,11 +325,7 @@ def _macenko_rows(od0, od1, od2, mask, angular_percentile: float,
     row-normalized stain rows (``_apply_kernel``'s phases 1-3, the
     Vahadane kernels' warm start). Returns (n_valid, h, e)."""
     B = od0.shape[0]
-    m = mask.to(torch.float32)
-    stats = [m.sum(-1)] + [_sum64(m * o) for o in (od0, od1, od2)] + [
-        _sum64(m * a * b)
-        for a, b in ((od0, od0), (od0, od1), (od0, od2),
-                     (od1, od1), (od1, od2), (od2, od2))]
+    stats = _masked_moments(od0, od1, od2, mask)
     v = _eigenplane_scalars(stats)
     angle = _pseudo_angle(od0, od1, od2, v)
     zero = torch.zeros(B, dtype=torch.float32, device=od0.device)
@@ -423,3 +446,209 @@ def macenko_normalize(rgb, stain_matrix_tgt, max_c_target, **kw):
         return macenko_normalize_ref(rgb, stain_matrix_tgt, max_c_target,
                                      **kw)
     return _launch(rgb, False, stain_matrix_tgt, max_c_target, **kw)
+
+
+# ---------------------------------------------------------------------------
+# K4: the Macenko fit alone (stain rows and maxC per tile).
+# ---------------------------------------------------------------------------
+
+
+def macenko_fit_planar_ref(rgb_planar, luminosity_threshold: float = 0.8,
+                           angular_percentile: float = 99.0,
+                           q_conc: float = 99.0, regularizer: float = 0.01,
+                           n_bisect: int = 14):
+    """Plain torch version of the fit kernel over planar (B, 3, R, 128)
+    uint8 tiles, step for step ``_fit_kernel`` (``:628-679``): K1's phases
+    1-4 on the whole tile. Returns (B, 2, 3) stain rows, (B, 2) maxC."""
+    od0, od1, od2, mask = _od_and_mask(rgb_planar, luminosity_threshold)
+    _, h, e = _macenko_rows(od0, od1, od2, mask, angular_percentile,
+                            n_bisect)
+    c1, c2 = _lasso2(od0, od1, od2, h, e, regularizer)
+    maxc = _conc_maxc(c1, c2, None, q_conc, n_bisect)
+    return (torch.stack([torch.stack(h, -1), torch.stack(e, -1)], dim=1),
+            torch.stack(maxc, -1))
+
+
+def macenko_fit_planar(rgb_planar, luminosity_threshold: float = 0.8,
+                       angular_percentile: float = 99.0, q_conc: float = 99.0,
+                       regularizer: float = 0.01, n_bisect: int = 14):
+    """Macenko estimation over planar (B, 3, R, 128) uint8 tiles with no
+    apply (``macenko_fused.py:688-736``): ``(stain_matrix (B, 2, 3),
+    max_c (B, 2))``, the per-image half of ``normalizer.py:45-48``. The
+    JAX signature's TPU-only knobs (``interpret``, ``tiles_per_step``,
+    ``n_cands``) have no counterpart here."""
+    global fit_launches
+    _check(rgb_planar, planar=True)
+    kw = dict(luminosity_threshold=luminosity_threshold,
+              angular_percentile=angular_percentile, q_conc=q_conc,
+              regularizer=regularizer, n_bisect=n_bisect)
+    if rgb_planar.device.type == "cpu":
+        return macenko_fit_planar_ref(rgb_planar, **kw)
+    from stainlib_tpu_torch.kernels import _build
+
+    B, dev = rgb_planar.shape[0], rgb_planar.device
+    n_pix = _n_pix(rgb_planar, True)
+    plane = torch.empty((B, 8), dtype=torch.float32, device=dev)
+    _build.launch("macenko_fit_launch", dev, rgb_planar.data_ptr(),
+                  plane.data_ptr(), _tables(dev).data_ptr(), B, n_pix, 1,
+                  n_pix, _y_threshold(luminosity_threshold), regularizer,
+                  (100.0 - angular_percentile) / 100.0,
+                  angular_percentile / 100.0, q_conc / 100.0,
+                  max(n_bisect - 4, 8), n_bisect)
+    fit_launches += 1
+    return plane[:, :6].reshape(B, 2, 3), plane[:, 6:8]
+
+
+# ---------------------------------------------------------------------------
+# K10: masked OD moments -> top-2 eigenplane.
+# ---------------------------------------------------------------------------
+
+
+def _eigenplane_from_moments(st):
+    """(B, 10) masked OD moments -> (B, 3, 2) eigenplane: ``np.cov``'s N-1
+    covariance, ``ops.linalg3.eigh3x3``, columns (2, 1), each column's red
+    component made non-negative (the glue at ``macenko_fused.py:518-532``)."""
+    n = torch.clamp_min(st[:, 0], 1.0)
+    mean = st[:, 1:4] / n[:, None]
+    sum_sq = st[:, [[4, 5, 6], [5, 7, 8], [6, 8, 9]]]
+    cov = sum_sq - n[:, None, None] * mean[:, :, None] * mean[:, None, :]
+    cov = cov / torch.clamp_min(n - 1.0, 1.0)[:, None, None]
+    _, V = eigh3x3(cov)
+    V2 = V[..., :, [2, 1]]
+    return V2 * torch.where(V2[..., 0:1, :] < 0.0, -1.0, 1.0)
+
+
+def eigenplane_ref(rgb_planar, luminosity_threshold: float = 0.8):
+    """Plain torch version of :func:`eigenplane`: the moments of
+    ``_stats_kernel`` (``:237-248``) in float64 sums, then the same glue."""
+    od0, od1, od2, mask = _od_and_mask(rgb_planar, luminosity_threshold)
+    return _eigenplane_from_moments(
+        torch.stack(_masked_moments(od0, od1, od2, mask), dim=1))
+
+
+def eigenplane(rgb_planar, luminosity_threshold: float = 0.8):
+    """Top-2 eigenvector plane of the masked OD covariance per planar
+    (B, 3, R, 128) uint8 tile (``macenko_fused.py:498-532``): the moments
+    kernel, then torch glue. Returns (B, 3, 2) float32."""
+    global eigenplane_launches
+    _check(rgb_planar, planar=True)
+    if rgb_planar.device.type == "cpu":
+        return eigenplane_ref(rgb_planar, luminosity_threshold)
+    from stainlib_tpu_torch.kernels import _build
+
+    B, dev = rgb_planar.shape[0], rgb_planar.device
+    n_pix = _n_pix(rgb_planar, True)
+    st = torch.empty((B, 10), dtype=torch.float32, device=dev)
+    _build.launch("eigenplane_launch", dev, rgb_planar.data_ptr(),
+                  st.data_ptr(), _tables(dev).data_ptr(), B, n_pix, 1, n_pix,
+                  _y_threshold(luminosity_threshold))
+    eigenplane_launches += 1
+    return _eigenplane_from_moments(st)
+
+
+# ---------------------------------------------------------------------------
+# K3: normalize against fixed source matrices (no estimation).
+# ---------------------------------------------------------------------------
+
+
+def _matrix_scalars(stain_matrix_src, max_c_src, stain_matrix_tgt,
+                    max_c_tgt, regularizer, batch, device):
+    """The kernel's (B, 16) per-image table: source rows, the rescale
+    ``max_c_tgt / max(max_c_src, 1e-8)`` (``:964``), target rows, the
+    regularizer, pad."""
+    mcs = _per_tile(max_c_src, 2, batch, device)
+    mct = _per_tile(max_c_tgt, 2, batch, device)
+    return torch.cat([
+        _per_tile(stain_matrix_src, 6, batch, device),
+        mct / torch.clamp_min(mcs, 1e-8),
+        _per_tile(stain_matrix_tgt, 6, batch, device),
+        torch.full((batch, 1), regularizer, dtype=torch.float32,
+                   device=device),
+        torch.zeros((batch, 1), dtype=torch.float32, device=device),
+    ], dim=1).contiguous()
+
+
+def _matrix_apply(x, scal):
+    """(B, 3, N) uint8 -> (B, 3, N) uint8, per pixel: K1's OD, the exact
+    lasso against the source rows, the rescale, the reconstruction through
+    the target rows (``_augment_kernel`` with estimate=False,
+    recon_in_scal=True, every pixel gated)."""
+    lut = _tables(x.device)[0]
+    xl = x.to(torch.long)
+    c1, c2 = _lasso2(lut[xl[:, 0]], lut[xl[:, 1]], lut[xl[:, 2]],
+                     list(scal[:, 0:3].T), list(scal[:, 3:6].T),
+                     scal[:, 14, None])
+    return _reconstruct_u8(c1 * scal[:, 6, None], c2 * scal[:, 7, None],
+                           scal[:, 8:14])
+
+
+def normalize_with_matrix_planar_ref(rgb_planar, stain_matrix_src, max_c_src,
+                                     stain_matrix_tgt, max_c_tgt,
+                                     regularizer: float = 0.01):
+    """Plain torch version of the fixed-matrix kernel over planar
+    (B, 3, R, 128) uint8 tiles."""
+    B, _, R, L = rgb_planar.shape
+    scal = _matrix_scalars(stain_matrix_src, max_c_src, stain_matrix_tgt,
+                           max_c_tgt, regularizer, B, rgb_planar.device)
+    return _matrix_apply(rgb_planar.reshape(B, 3, -1), scal).reshape(
+        B, 3, R, L)
+
+
+def normalize_with_matrix_ref(rgb, stain_matrix_src, max_c_src,
+                              stain_matrix_tgt, max_c_tgt,
+                              regularizer: float = 0.01):
+    """Plain version over (B, H, W, 3) uint8 images of any size."""
+    B, H, W, _ = rgb.shape
+    scal = _matrix_scalars(stain_matrix_src, max_c_src, stain_matrix_tgt,
+                           max_c_tgt, regularizer, B, rgb.device)
+    out = _matrix_apply(rgb.reshape(B, H * W, 3).transpose(1, 2), scal)
+    return out.transpose(1, 2).reshape(B, H, W, 3)
+
+
+def _matrix_launch(x, planar: bool, stain_matrix_src, max_c_src,
+                   stain_matrix_tgt, max_c_tgt, regularizer: float):
+    global matrix_launches
+    from stainlib_tpu_torch.kernels import _build
+
+    B, dev = x.shape[0], x.device
+    if B > 65535:
+        raise ValueError(f"the fixed-matrix kernel takes at most 65535 "
+                         f"images per call, got {B}")
+    n_pix = _n_pix(x, planar)
+    scal = _matrix_scalars(stain_matrix_src, max_c_src, stain_matrix_tgt,
+                           max_c_tgt, regularizer, B, dev)
+    out = torch.empty_like(x)
+    pix_stride, ch_stride = (1, n_pix) if planar else (3, 1)
+    _build.launch("matrix_normalize_launch", dev, x.data_ptr(),
+                  out.data_ptr(), scal.data_ptr(), _tables(dev).data_ptr(),
+                  B, n_pix, pix_stride, ch_stride)
+    matrix_launches += 1
+    return out
+
+
+def normalize_with_matrix_planar(rgb_planar, stain_matrix_src, max_c_src,
+                                 stain_matrix_tgt, max_c_tgt,
+                                 regularizer: float = 0.01):
+    """Fixed-matrix normalize over planar (B, 3, R, 128) uint8 tiles
+    (``macenko_fused.py:936-991``): exact lasso against a fixed per-tile
+    (B, 2, 3) or shared (2, 3) source matrix, rescale every stain by
+    ``max_c_tgt / max_c_src``, reconstruct through the target matrix.
+    The JAX signature's ``interpret`` has no counterpart here."""
+    _check(rgb_planar, planar=True)
+    args = (stain_matrix_src, max_c_src, stain_matrix_tgt, max_c_tgt,
+            regularizer)
+    if rgb_planar.device.type == "cpu":
+        return normalize_with_matrix_planar_ref(rgb_planar, *args)
+    return _matrix_launch(rgb_planar, True, *args)
+
+
+def normalize_with_matrix(rgb, stain_matrix_src, max_c_src, stain_matrix_tgt,
+                          max_c_tgt, regularizer: float = 0.01):
+    """(B, H, W, 3) uint8 entry point, any H and W: the apply is per pixel,
+    so the kernel reads a whole interleaved field in one launch."""
+    _check(rgb, planar=False, lanes=False)
+    args = (stain_matrix_src, max_c_src, stain_matrix_tgt, max_c_tgt,
+            regularizer)
+    if rgb.device.type == "cpu":
+        return normalize_with_matrix_ref(rgb, *args)
+    return _matrix_launch(rgb, False, *args)

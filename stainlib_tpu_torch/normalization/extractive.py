@@ -1,12 +1,14 @@
 """Extractive (Macenko / Vahadane) stain normalization, batched end to end.
 
-Port of the JAX package's ``normalization/extractive.py:29-115,202-206``,
+Port of the JAX package's ``normalization/extractive.py:29-206``,
 the batched re-design of ``ExtractiveStainNormalizer``
 (``stainlib/normalization/normalizer.py:16-50``): fit stores the target
 stain matrix and the 99th-percentile concentration per stain; transform
 re-estimates the source stain matrix per image, solves the exact lasso,
 rescales by maxC_target / maxC_source and reconstructs
-``255 * exp(-C @ M_target)``.
+``255 * exp(-C @ M_target)``. ``transform_tiled`` is the route for large
+fields: one estimate per image (kernel K4 or the functional path), then
+the fixed-matrix kernel K3 on every pixel.
 """
 
 from __future__ import annotations
@@ -17,6 +19,17 @@ import torch
 
 from stainlib_tpu_torch.extraction.macenko import stain_matrix_macenko
 from stainlib_tpu_torch.extraction.vahadane import stain_matrix_vahadane
+from stainlib_tpu_torch.kernels.fused_stain import (
+    blockify,
+    from_planar,
+    to_planar,
+    unblockify,
+)
+from stainlib_tpu_torch.kernels.macenko_fused import (
+    macenko_fit_planar,
+    normalize_with_matrix,
+    normalize_with_matrix_planar,
+)
 from stainlib_tpu_torch.ops.colorspace import to_uint8
 from stainlib_tpu_torch.ops.lasso import get_concentrations
 from stainlib_tpu_torch.ops.percentile import percentile
@@ -83,6 +96,71 @@ def estimate_source(rgb, method: str = "macenko", regularizer: float = 0.01,
     C = get_concentrations(rgb, M_src, regularizer)
     max_c_src = percentile(C.reshape(C.shape[:-3] + (-1, 2)), 99.0, axis=-2)
     return M_src, max_c_src
+
+
+def transform_tiled(params: ExtractiveParams, rgb, method: str = "macenko",
+                    regularizer: float = 0.01, block: int | None = None,
+                    est_stride: int = 1, fused_fit: bool = True,
+                    **extractor_kwargs):
+    """:func:`transform` for fields larger than the fused per-tile kernels
+    take (``extractive.py:118-189``): estimate once per image, then apply
+    the fixed-matrix kernel K3 (``macenko_fused.normalize_with_matrix``).
+
+    ``est_stride`` > 1 estimates on the ``[::s, ::s]`` grid subsample of
+    the field. The Macenko estimate takes the fit kernel K4 when the
+    subsample, flattened and trimmed to whole 1024-pixel groups, keeps
+    8192..512^2 pixels (``fused_fit``, no ``extractor_kwargs``); otherwise
+    it takes the functional :func:`estimate_source` (always, for
+    Vahadane). The apply is per pixel: with ``block=None`` K3 reads the
+    whole field in one launch; an int cuts the field into white-padded
+    ``block``-square tiles first, as the JAX route does, with identical
+    bytes.
+
+    ``rgb``: (B, H, W, 3) or (H, W, 3) uint8; any H, W.
+    """
+    single = rgb.ndim == 3
+    if single:
+        rgb = rgb[None]
+    B, H, W, _ = rgb.shape
+
+    est_in = (rgb if est_stride <= 1
+              else rgb[:, ::est_stride, ::est_stride, :])
+    npix = est_in.shape[1] * est_in.shape[2]
+    n_keep = npix // 1024 * 1024
+    if (fused_fit and check_method(method) == "macenko"
+            and not extractor_kwargs and 8 * 1024 <= n_keep
+            and npix <= 512 * 512):
+        flat = est_in.reshape(B, npix, 3)[:, :n_keep]
+        planar = flat.permute(0, 2, 1).reshape(
+            B, 3, n_keep // 128, 128).contiguous()
+        M_src, max_c_src = macenko_fit_planar(planar,
+                                              regularizer=regularizer)
+    else:
+        M_src, max_c_src = estimate_source(est_in, method=method,
+                                           regularizer=regularizer,
+                                           **extractor_kwargs)
+    args = (M_src, max_c_src, params.stain_matrix_target,
+            params.max_c_target, regularizer)
+    if block is None:
+        out = normalize_with_matrix(rgb.contiguous(), *args)
+    else:
+        blocks, grid = blockify(rgb, block)
+        per_img = grid[0] * grid[1]
+        M_rep = M_src.reshape(B, 6).repeat_interleave(per_img, dim=0)
+        mc_rep = max_c_src.reshape(B, 2).repeat_interleave(per_img, dim=0)
+        out = normalize_with_matrix_planar(
+            to_planar(blocks).contiguous(), M_rep, mc_rep, *args[2:])
+        out = unblockify(from_planar(out, block, block), grid, H, W)
+    return out[0] if single else out
+
+
+def tiled_est_stride(h: int, w: int, floor: int = 256 * 256) -> int:
+    """Largest power-of-two grid stride that keeps >= ``floor`` pixels in
+    the estimation subsample (``extractive.py:192-199``)."""
+    s = 1
+    while (h // (2 * s)) * (w // (2 * s)) >= floor:
+        s *= 2
+    return s
 
 
 def reconstruct(concentrations, stain_matrix):

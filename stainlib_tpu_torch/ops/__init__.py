@@ -8,7 +8,12 @@ from stainlib_tpu_torch.ops.colorspace import (
 from stainlib_tpu_torch.ops.dictlearn import fit_stain_dictionary
 from stainlib_tpu_torch.ops.lasso import get_concentrations, nonneg_lasso_k2
 from stainlib_tpu_torch.ops.linalg3 import eigh3x3
-from stainlib_tpu_torch.ops.percentile import masked_percentile, percentile
+from stainlib_tpu_torch.ops.percentile import (
+    masked_mean,
+    masked_percentile,
+    mean_std,
+    percentile,
+)
 from stainlib_tpu_torch.ops.tissue import (
     TissueMask,
     luminosity_standardize,

@@ -18,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from stainlib_tpu_torch.ops.fdiv import fdiv
+
 # OpenCV's RGB->XYZ matrix (ITU-R BT.709 primaries, D65).
 _RGB2XYZ = np.array(
     [
@@ -46,7 +48,8 @@ def _cbrt(x):
 
 def _srgb_gamma_expand(c):
     """sRGB electro-optical transfer: gamma-encoded [0,1] -> linear [0,1]."""
-    return torch.where(c <= 0.04045, c / 12.92, ((c + 0.055) / 1.055) ** 2.4)
+    return torch.where(c <= 0.04045, fdiv(c, 12.92),
+                       fdiv(c + 0.055, 1.055) ** 2.4)
 
 
 def _srgb_gamma_compress(c):
@@ -62,13 +65,13 @@ def _lab_f(t):
 
 def _lab_f_inv(ft):
     t3 = ft ** 3
-    return torch.where(t3 > _LAB_DELTA, t3, (ft - 16.0 / 116.0) / 7.787)
+    return torch.where(t3 > _LAB_DELTA, t3, fdiv(ft - 16.0 / 116.0, 7.787))
 
 
 def rgb_to_lab(rgb):
     """sRGB in [0,255] -> CIELAB (L in [0,100]); OpenCV's 8-bit
     ``COLOR_RGB2LAB`` (``stain_utils.py:41``) with its packing undone."""
-    c = torch.as_tensor(rgb).to(torch.float32) / 255.0
+    c = fdiv(torch.as_tensor(rgb).to(torch.float32), 255.0)
     lin = _srgb_gamma_expand(c)
     xyz = lin @ _f32(_RGB2XYZ.T, c.device)
     xyz = xyz / _f32(_WHITE, c.device)
@@ -86,10 +89,11 @@ def lab_to_rgb(lab):
     ``COLOR_LAB2RGB`` (``stain_utils.py:66,172``) up to 8-bit quantization."""
     lab = torch.as_tensor(lab).to(torch.float32)
     L, a, b = lab[..., 0], lab[..., 1], lab[..., 2]
-    fy = (L + 16.0) / 116.0
-    fx = fy + a / 500.0
-    fz = fy - b / 200.0
-    y = torch.where(L > _LAB_KAPPA * _LAB_DELTA, fy ** 3, L / _LAB_KAPPA)
+    fy = fdiv(L + 16.0, 116.0)
+    fx = fy + fdiv(a, 500.0)
+    fz = fy - fdiv(b, 200.0)
+    y = torch.where(L > _LAB_KAPPA * _LAB_DELTA, fy ** 3,
+                    fdiv(L, _LAB_KAPPA))
     x = _lab_f_inv(fx)
     z = _lab_f_inv(fz)
     xyz = torch.stack([x, y, z], dim=-1) * _f32(_WHITE, lab.device)
@@ -101,7 +105,7 @@ def lab_to_rgb(lab):
 def lab_luminance(rgb):
     """L channel of CIELAB in [0,100]; the reference's tissue-mask
     statistic (``stain_utils.py:41-43``: uint8 L / 255 == L / 100)."""
-    c = torch.as_tensor(rgb).to(torch.float32) / 255.0
+    c = fdiv(torch.as_tensor(rgb).to(torch.float32), 255.0)
     lin = _srgb_gamma_expand(c)
     Y = lin @ _f32(_RGB2XYZ.T[:, 1], c.device)
     return torch.where(Y > _LAB_DELTA, 116.0 * _cbrt(Y) - 16.0,
@@ -112,7 +116,7 @@ def rgb_to_od(rgb):
     """RGB [0,255] -> optical density ``max(-log(max(I,1)/255), 1e-6)``
     (``convert_RGB_to_OD``, ``stain_utils.py:101-112``)."""
     I = torch.clamp_min(torch.as_tensor(rgb).to(torch.float32), 1.0)
-    return torch.clamp_min(-torch.log(I / 255.0), 1e-6)
+    return torch.clamp_min(-torch.log(fdiv(I, 255.0)), 1e-6)
 
 
 def to_uint8(x):

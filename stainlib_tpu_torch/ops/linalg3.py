@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from stainlib_tpu_torch.ops.fdiv import fdiv
+
 
 def _cross(u, v):
     return torch.stack([
@@ -40,13 +42,13 @@ def eigh3x3(A, eps: float = 1e-12):
     eye = torch.eye(3, dtype=A.dtype, device=A.device)
     scale = torch.clamp_min(A.abs().amax((-2, -1), keepdim=True), eps)
     As = A / scale
-    q = torch.diagonal(As, dim1=-2, dim2=-1).sum(-1) / 3.0
+    q = fdiv(torch.diagonal(As, dim1=-2, dim2=-1).sum(-1), 3.0)
     B = As - q[..., None, None] * eye
-    p2 = (B * B).sum((-2, -1)) / 6.0
+    p2 = fdiv((B * B).sum((-2, -1)), 6.0)
     p = torch.sqrt(torch.clamp_min(p2, eps * eps))
     detB = _det3(B / p[..., None, None])
     r = torch.clamp(detB / 2.0, -1.0, 1.0)
-    phi = torch.arccos(r) / 3.0
+    phi = fdiv(torch.arccos(r), 3.0)
     w2 = q + 2.0 * p * torch.cos(phi)  # largest
     w0 = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)  # smallest
     w1 = 3.0 * q - w0 - w2

@@ -1,6 +1,6 @@
 """Percentile and masked-percentile primitives with static shapes.
 
-Port of the JAX package's ``ops/percentile.py:19-142``, which replaces the
+Port of the JAX package's ``ops/percentile.py``, which replaces the
 reference's ``np.percentile`` sites (``macenko_stain_extractor.py:33-35``,
 ``normalizer.py:36,46``, ``stain_utils.py:64,193``) and its boolean
 fancy-indexing (``OD[tissue_mask]``). Masks fold in as +inf sentinels, so
@@ -9,11 +9,14 @@ every shape stays static.
 NumPy's default 'linear' interpolation throughout. Reduction axes up to
 512^2 elements sort; longer ones use count bisection (``torch.quantile``
 raises above 2^24 elements, and the masked form needs the sentinel anyway).
+``masked_mean`` and ``mean_std`` port ``percentile.py:145-159``.
 """
 
 from __future__ import annotations
 
 import torch
+
+from stainlib_tpu_torch.ops.fdiv import fdiv
 
 _BISECT_THRESHOLD = 512 * 512
 # Interior candidates per round: each round narrows the bracket 8x.
@@ -41,7 +44,7 @@ def _percentile_bisect(values, mask, q, n_rounds=_BISECT_ROUNDS,
     q = torch.as_tensor(q, dtype=torch.float32, device=v.device)
     scalar_q = q.ndim == 0
     qv = q.reshape(-1)
-    rank = (qv.reshape(qv.shape + (1,) * (v.ndim - 1)) / 100.0
+    rank = (fdiv(qv.reshape(qv.shape + (1,) * (v.ndim - 1)), 100.0)
             * torch.clamp_min(n - 1.0, 0.0))  # (m, *batch)
     rank_lo = torch.floor(rank)
     frac = rank - rank_lo
@@ -81,7 +84,7 @@ def _sorted_percentile(a, q):
     a = torch.where(torch.isnan(a).any(-1, keepdim=True), torch.nan, a)
     a = torch.sort(a, dim=-1).values
     n = a.shape[-1]
-    qf = torch.as_tensor(q, dtype=torch.float32, device=a.device) / 100.0
+    qf = fdiv(torch.as_tensor(q, dtype=torch.float32, device=a.device), 100.0)
     qr = qf * float(n - 1)
     low = torch.floor(qr)
     high = torch.ceil(qr)
@@ -122,7 +125,7 @@ def masked_percentile(values, mask, q):
     n = mask.sum(-1).to(torch.float32)
     qa = torch.as_tensor(q, dtype=torch.float32, device=values.device)
     qv = qa.reshape(-1)
-    rank = (qv.reshape(qv.shape + (1,) * n.ndim) / 100.0
+    rank = (fdiv(qv.reshape(qv.shape + (1,) * n.ndim), 100.0)
             * torch.clamp_min(n - 1.0, 0.0))  # (m, *batch)
     lo = torch.floor(rank).to(torch.long)
     hi = torch.ceil(rank).to(torch.long)
@@ -132,3 +135,21 @@ def masked_percentile(values, mask, q):
     v_hi = torch.gather(vb, -1, hi[..., None])[..., 0]
     out = v_lo * (1.0 - frac) + v_hi * frac
     return out[0] if qa.ndim == 0 else out
+
+
+def masked_mean(values, mask, axis=None):
+    """Mean over masked entries (``percentile.py:145-150``); 0 for an empty
+    mask."""
+    m = torch.as_tensor(mask).to(torch.float32)
+    v = torch.as_tensor(values).to(torch.float32)
+    n = m.sum(dim=axis)
+    return (v * m).sum(dim=axis) / torch.clamp_min(n, 1.0)
+
+
+def mean_std(values, axis=None):
+    """Population mean and std (``percentile.py:153-159``), dividing by N
+    as ``cv.meanStdDev`` does (``stain_utils.py:181``)."""
+    v = torch.as_tensor(values).to(torch.float32)
+    mu = v.mean(dim=axis)
+    sd = torch.sqrt(torch.clamp_min((v * v).mean(dim=axis) - mu * mu, 0.0))
+    return mu, sd

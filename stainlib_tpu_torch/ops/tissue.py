@@ -14,6 +14,7 @@ from typing import NamedTuple
 import torch
 
 from stainlib_tpu_torch.ops import colorspace
+from stainlib_tpu_torch.ops.fdiv import fdiv
 from stainlib_tpu_torch.ops.percentile import percentile
 
 
@@ -27,7 +28,7 @@ class TissueMask(NamedTuple):
 
 def tissue_mask(rgb, luminosity_threshold: float = 0.8) -> TissueMask:
     """Luminosity tissue mask over (..., H, W, 3) RGB in [0,255]."""
-    L = colorspace.lab_luminance(rgb) / 100.0
+    L = fdiv(colorspace.lab_luminance(rgb), 100.0)
     mask = L < luminosity_threshold
     count = mask.sum((-2, -1)).to(torch.int32)
     return TissueMask(mask=mask, count=count)

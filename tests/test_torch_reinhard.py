@@ -1,0 +1,212 @@
+"""The port's Reinhard path (``ops/percentile.mean_std``,
+``normalization/reinhard.py``, the plain version of kernel K5 and the
+drop-in ``ReinhardStainNormalizer``) against the JAX package and the cv2
+golden on the CPU.
+
+Same numpy images on both sides (``tests/synth.py``). Tolerances:
+
+* ``mean_std`` / ``masked_mean``: rtol and atol 1e-5 (float32 sums in
+  another order; the std's E[x^2] - mu^2 cancels).
+* fit: means and stds atol 2e-4 from JAX (float32 means over 65k pixels at
+  256^2; 1e-5 at 64^2) and atol 0.05 from the cv2 golden, whose 8-bit LAB
+  conversion JAX's own fit is 0.036 away from.
+* transform with the same fitted state: at most 1 uint8 step from JAX, on
+  under 1% of the bytes. The per-image LAB means are float32 sums in
+  another order (2e-4 apart at 64^2), and the merge-back floor turns that
+  into a 1 u8 step on up to 0.5% of the bytes. ΔE < 1.0 against the cv2
+  golden, as ``tests/test_normalization.py`` asks of JAX.
+* plain K5: at most 1 uint8 step from the JAX kernel in interpret mode, on
+  under 0.1% of the bytes, and within ``tests/test_reinhard_fused.py``'s
+  budget of the functional path (<=1 on >99%, max <=3).
+"""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+import stainlib_tpu as jsl  # noqa: E402
+import stainlib_tpu_torch as tsl  # noqa: E402
+from stainlib_tpu.kernels import reinhard_fused as jax_k  # noqa: E402
+from stainlib_tpu.normalization import reinhard as jax_rh  # noqa: E402
+from stainlib_tpu.ops.percentile import masked_mean as jax_masked_mean  # noqa: E402
+from stainlib_tpu.ops.percentile import mean_std as jax_mean_std  # noqa: E402
+from stainlib_tpu_torch.convert import reinhard_params_from_jax  # noqa: E402
+from stainlib_tpu_torch.kernels import fused_stain as fs  # noqa: E402
+from stainlib_tpu_torch.kernels import reinhard_fused as rf  # noqa: E402
+from stainlib_tpu_torch.normalization import reinhard  # noqa: E402
+from stainlib_tpu_torch.ops.percentile import masked_mean, mean_std  # noqa: E402
+from tests import cpu_reference as ref  # noqa: E402
+from tests.synth import he_batch, he_patch  # noqa: E402
+
+WHITE = np.full((16, 16, 3), 255, np.uint8)
+
+
+def _diff(got, want):
+    return np.abs(np.asarray(got).astype(int) - np.asarray(want).astype(int))
+
+
+def _u8_close(got, want, share=1e-3):
+    d = _diff(got, want)
+    assert d.max() <= 1 and (d > 0).mean() < share, (d.max(), (d > 0).mean())
+
+
+def _params(seed, side=64):
+    jp = jax_rh.fit(jnp.asarray(he_patch(side, side, seed=seed)))
+    return jp, reinhard_params_from_jax(np.asarray(jp.means),
+                                        np.asarray(jp.stds), "cpu")
+
+
+@pytest.mark.parametrize("axis", [None, (-3, -2), -1])
+def test_mean_std_and_masked_mean_match_jax(axis):
+    rng = np.random.default_rng(0)
+    x = (rng.normal(size=(2, 5, 7, 3)) * 40 + 10).astype(np.float32)
+    mask = rng.random((2, 5, 7, 3)) > 0.4
+    for got, want in zip(mean_std(torch.from_numpy(x), axis=axis),
+                         jax_mean_std(jnp.asarray(x), axis=axis)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+    np.testing.assert_allclose(
+        masked_mean(torch.from_numpy(x), torch.from_numpy(mask),
+                               axis=axis).numpy(),
+        np.asarray(jax_masked_mean(jnp.asarray(x), jnp.asarray(mask),
+                                       axis=axis)), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("side", [64, 256])
+def test_fit_matches_jax_and_cv2(side):
+    target = he_patch(side, side, seed=40)
+    jp = jax_rh.fit(jnp.asarray(target))
+    tp = reinhard.fit(torch.from_numpy(target))
+    for got, want in ((tp.means, jp.means), (tp.stds, jp.stds)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=2e-4)
+    g_means, g_stds = ref.reinhard_fit(target)
+    np.testing.assert_allclose(tp.means.numpy(), g_means, rtol=0, atol=0.05)
+    np.testing.assert_allclose(tp.stds.numpy(), g_stds, rtol=0, atol=0.05)
+    # The float path (quantize=False) as well.
+    jf = jax_rh.fit(jnp.asarray(target), quantize=False)
+    tf = reinhard.fit(torch.from_numpy(target), quantize=False)
+    np.testing.assert_allclose(tf.means.numpy(), np.asarray(jf.means),
+                               rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("kw", [
+    {}, dict(mask_background=True), dict(quantize=False),
+    dict(brightness_divisor=200.0), dict(source_stats="jax"),
+], ids=["default", "mask", "float", "divisor", "source_stats"])
+def test_transform_matches_jax(kw):
+    jp, tp = _params(40)
+    src = he_batch(2, 64, 64, seed=41, background_frac=0.4)
+    jkw, tkw = dict(kw), dict(kw)
+    if "source_stats" in kw:  # another image's statistics, hoisted
+        js, ts = _params(45)
+        jkw["source_stats"], tkw["source_stats"] = js, ts
+    want = jax_rh.transform(jp, jnp.asarray(src), **jkw)
+    got = reinhard.transform(tp, torch.from_numpy(src), **tkw)
+    assert got.dtype == torch.uint8 and got.shape == src.shape
+    _u8_close(got, want, share=1e-2)
+    if kw.get("mask_background"):
+        assert got[:, :8].min() > 240  # background painted white
+
+
+def test_transform_fidelity_vs_cv2():
+    """``tests/test_normalization.py:11-19`` for the port."""
+    target, src = he_patch(64, 64, seed=40), he_patch(64, 64, seed=41)
+    tp = reinhard.fit(torch.from_numpy(target))
+    got = reinhard.transform(tp, torch.from_numpy(src)).numpy()
+    want = ref.reinhard_transform(src, *ref.reinhard_fit(target))
+    assert ref.delta_e(got, want) < 1.0
+    # Batched equals single.
+    batch = he_batch(3, 64, 64, seed=43)
+    out = reinhard.transform(tp, torch.from_numpy(batch))
+    for i in range(3):
+        assert torch.equal(out[i], reinhard.transform(
+            tp, torch.from_numpy(batch[i])))
+
+
+def test_plain_k5_matches_jax_kernel_and_functional():
+    """At ``tests/test_reinhard_fused.py:27-35``'s 2x32x64 (interpret mode
+    is slow)."""
+    jp, tp = _params(112, side=32)
+    batch = he_batch(2, 32, 64, seed=113)
+    want = jax_k.reinhard_normalize(jnp.asarray(batch), jp.means, jp.stds,
+                                    interpret=True)
+    got = rf.reinhard_normalize(torch.from_numpy(batch), tp.means, tp.stds)
+    _u8_close(got, want)
+    d = _diff(got, reinhard.transform(tp, torch.from_numpy(batch)))
+    assert (d <= 1).mean() > 0.99 and d.max() <= 3, (d.max(),
+                                                     (d > 1).mean())
+
+
+def test_plain_k5_at_256_against_functional():
+    """256^2 tiles, where the percentile and the six sums run over 65k
+    pixels; the same functional budget."""
+    _, tp = _params(110, side=256)
+    batch = torch.from_numpy(he_batch(4, 256, 256, seed=111))
+    got = rf.reinhard_normalize(batch, tp.means, tp.stds)
+    d = _diff(got, reinhard.transform(tp, batch))
+    assert (d <= 1).mean() > 0.99 and d.max() <= 3, (d.max(),
+                                                     (d > 1).mean())
+
+
+def test_brightness_percentile_is_np_percentile():
+    """The plain kernel's joint u8-grid percentile equals np.percentile
+    over the tile's 3N bytes, including ties and a tile of one value."""
+    rng = np.random.default_rng(3)
+    tiles = rng.integers(0, 256, size=(3, 3, 1024)).astype(np.float32)
+    tiles[1] = np.minimum(tiles[1], 30.0)  # heavy ties
+    tiles[2] = 77.0
+    for q in (90.0, 50.0, 99.9):
+        got = rf._percentile_u8(torch.from_numpy(tiles), q).numpy()
+        want = np.percentile(tiles.reshape(3, -1), q, axis=1)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+def test_wrappers_on_cpu_tensors():
+    _, tp = _params(90)
+    rgb = torch.from_numpy(he_batch(2, 32, 64, seed=96))
+    before = rf.launches
+    out = rf.reinhard_normalize(rgb, tp.means, tp.stds)
+    planar = rf.reinhard_normalize_planar(fs.to_planar(rgb).contiguous(),
+                                          tp.means, tp.stds)
+    assert rf.launches == before
+    assert torch.equal(fs.from_planar(planar, 32, 64), out)
+    one = rf.reinhard_normalize(rgb[1:], tp.means[None], tp.stds[None])
+    assert torch.equal(one[0], out[1])
+    with pytest.raises(TypeError):
+        rf.reinhard_normalize(rgb.float(), tp.means, tp.stds)
+    with pytest.raises(ValueError):
+        rf.reinhard_normalize(rgb[:, :, :3], tp.means, tp.stds)
+
+
+def test_dropin_class_matches_jax_and_raise_contract():
+    """The JAX class's contract (``tests/test_api.py:38-75``)."""
+    target, img = he_patch(48, 48, seed=52), he_patch(48, 48, seed=53)
+    jn, tn = jsl.ReinhardStainNormalizer(), tsl.ReinhardStainNormalizer(
+        device="cpu")
+    assert tn.target_means == 0 and tn.target_stds == 0
+    with pytest.raises(RuntimeError):
+        tn.transform(img)
+    jn.fit(target)
+    tn.fit(target)
+    assert np.asarray(tn.target_means).shape == (3,)
+    np.testing.assert_allclose(tn.target_means, jn.target_means, atol=2e-4)
+    np.testing.assert_allclose(tn.target_stds, jn.target_stds, atol=2e-4)
+    for kw in ({}, dict(mask_background=True),
+               dict(mask_background=True, luminosity_threshold=0.7)):
+        out = tn.transform(img, **kw)
+        assert out.dtype == np.uint8 and out.shape == img.shape
+        _u8_close(out, jn.transform(img, **kw), share=1e-2)
+    tn.transform(WHITE)  # no masking: the reference does not raise
+    with pytest.raises(tsl.TissueMaskException):
+        tn.transform(WHITE, mask_background=True)
+    with pytest.raises(AssertionError):
+        tn.transform(np.zeros((8, 8, 3), np.float32))
+    with pytest.raises(AssertionError):
+        tn.fit(np.zeros((8, 8, 3), np.float32))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tsl.ReinhardStainNormalizer()
