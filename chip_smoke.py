@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py
 
-Drives ``stainlib_tpu_torch``'s normalize paths on the card, on uint8
-H&E images (random synthetic images from a seed):
+Drives ``stainlib_tpu_torch``'s normalize and stain-augmentation paths on
+the card, on uint8 H&E images (random synthetic images from a seed):
 
 * Macenko: the drop-in ``ExtractiveStainNormalizer("macenko")`` and the
   batched ``macenko_normalize`` entry (kernel K1), 256x256 tiles;
@@ -19,7 +19,14 @@ H&E images (random synthetic images from a seed):
   tiles;
 * Reinhard: the drop-in ``ReinhardStainNormalizer`` on one 256x256 image
   and the batched ``reinhard_normalize`` entry (kernel K5) on 256x256 and
-  512x512 tiles.
+  512x512 tiles;
+* stain augmentation: ``stain_augment`` on 256 tiles of 256x256, Macenko
+  (the fused augment kernel K6) and Vahadane (K8, then the augment-apply
+  kernel K7), the drop-in ``StainAugmentor("macenko")`` fit and eight pops
+  (K7 per pop), ``stain_augment`` on one 2048x2048 field (the functional
+  estimate, then K7 on the whole field), and the torch-only augmenters
+  (HED, grayscale, RGB, HSV jitter, the geometric warp) against their CPU
+  evaluation.
 
 It builds the hand-written CUDA kernels from the sources in the checkout,
 counts each kernel's launches over its path, holds every kernel against
@@ -28,10 +35,15 @@ runs give identical bytes, and times each kernel against its plain version
 with CUDA events.
 
 Phases print one line each. Before the last line it prints the card's name
-and power limit (``nvidia-smi``) and a JSON object describing each kernel;
-the last line is ``{"ok": true, "device": {...}}``. Any failure raises and
-the script exits non-zero; without a CUDA device it exits non-zero and
-prints no result. Imports neither jax nor the JAX package.
+and power limit (``nvidia-smi``) and a JSON object describing each kernel:
+its launches on its path, its largest difference from its plain version,
+its time and the plain version's, and ``bound_ms``, the least time the card
+could take for the same work (the larger of its bytes over 3.35 TB/s and
+its float32 operations over 67 TFLOP/s, counted from the shapes of the
+timed call and the tissue share of its inputs); the last line is
+``{"ok": true, "device": {...}}``. Any failure raises and the script exits
+non-zero; without a CUDA device it exits non-zero and prints no result.
+Imports neither jax nor the JAX package.
 """
 
 from __future__ import annotations
@@ -54,6 +66,19 @@ FIELDS = (1024, 2048)  # large fields: the API's tiled route
 FAST = dict(fit_stride=2, n_bisect=10)  # the API's Macenko knobs at >= 256^2
 VFAST = dict(fit_stride=2, num_iters=8, n_bisect=10)  # ... and Vahadane's
 REPS = 15
+HBM_BYTES_PER_S = 3.35e12  # one H100 SXM's device memory rate
+F32_OPS_PER_S = 67e12  # its float32 rate outside the tensor cores
+
+# float32 operations per pixel visit, counted from the algorithms'
+# expressions, each intermediate computed once (a table lookup counts as
+# none, an exp as one): the tissue mask (two adds, a compare), the masked
+# moments (3 sums, 6 products, 6 sums), the pseudo-angle, the min/max pass,
+# one bisection round of one search (a compare, an add), one successor
+# recovery (a compare, a min, an add), the exact K=2 lasso, the augment gate,
+# the three-channel reconstruction, one BCD pass (a lasso, 9 products, 9
+# sums) and Reinhard's per-pixel LAB round trip with its sums.
+OPS = dict(mask=3, moments=15, angle=16, extreme=2, round=2, succ=3,
+           lasso=38, gate=5, recon=24, bcd=56, reinhard=111)
 
 
 def log(phase, msg):
@@ -101,6 +126,36 @@ def time_ms(fn, reps=REPS):
     return float(np.median(times))
 
 
+def device_ms(fn, kernel: str, reps=REPS):
+    """Device time per call of the CUDA kernels whose name contains
+    ``kernel``, from ``torch.profiler`` over ``reps`` calls after a warm-up:
+    the kernel alone, without the wrapper's host work. Before each call a
+    128 MB write evicts the 50 MB L2, so the kernel reads its input from
+    device memory, as a caller with fresh tiles would. None where the
+    profiler reports no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.fill_(0)
+                fn()
+            torch.cuda.synchronize()
+    except RuntimeError as err:  # no CUPTI: say so, time with events only
+        log("profiler", f"unavailable: {err}")
+        return None
+    us = sum(getattr(e, "device_time_total", 0.0)
+             for e in prof.key_averages() if kernel in e.key)
+    return us / reps / 1e3 if us > 0 else None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
 def time_pair(kernel, plain):
     """Kernel and plain version in turns (plain, kernel, kernel, plain);
     returns ((kernel a, kernel b), (plain a, plain b)) in ms."""
@@ -109,6 +164,60 @@ def time_pair(kernel, plain):
     kb = time_ms(kernel)
     pb = time_ms(plain)
     return (ka, kb), (pa, pb)
+
+
+def _est_ops(n, it_angle, tissue):
+    """The Macenko estimate over n sample pixels, a share ``tissue`` of
+    them in the mask: the mask of every pixel; moments, angle, min/max, two
+    searches of ``it_angle`` rounds and two successors over the tissue."""
+    return n * (OPS["mask"] + tissue * (
+        OPS["moments"] + OPS["angle"] + OPS["extreme"]
+        + 2 * it_angle * OPS["round"] + 2 * OPS["succ"]))
+
+
+def _conc_ops(n, it_conc):
+    """The two 99th-percentile concentration searches over n pixels."""
+    return n * (OPS["extreme"] + 2 * it_conc * OPS["round"] + 2 * OPS["succ"])
+
+
+def work(kernel: str, b: int, n: int, tissue: float = 1.0):
+    """(bytes, float32 operations) of one call of ``kernel`` on ``b``
+    images of ``n`` pixels, a share ``tissue`` of them in the tissue mask,
+    at the knobs its timed call uses: each input byte read once, each
+    output byte written once."""
+    io = 2 * b * n * 3  # uint8 in and out
+    s = n // 2  # the fs=2 estimation sample
+    t = tissue
+    apply = OPS["lasso"] + 2 + OPS["recon"]
+    per = {
+        "K1": (io, _est_ops(s, 8, t) + n * apply + _conc_ops(s, 10)),
+        "K2": (io, _est_ops(s, 8, t) + 8 * t * s * OPS["bcd"] + n * apply
+               + _conc_ops(s, 10)),
+        "K8": (b * n * 3 + b * 24,
+               _est_ops(n, 10, t) + 12 * t * n * OPS["bcd"]),
+        "K9": (io + b * 24, n * apply + _conc_ops(n, 14)),
+        "K3": (io, n * apply),
+        "K4": (b * n * 3 + b * 32,
+               _est_ops(n, 10, t) + n * OPS["lasso"] + _conc_ops(n, 14)),
+        "K10": (b * n * 3 + b * 24,
+                n * (OPS["mask"] + t * OPS["moments"])),
+        "K5": (io, n * OPS["reinhard"]),
+        "K6": (io, _est_ops(n, 10, t)
+               + n * (OPS["lasso"] + OPS["gate"] + OPS["recon"])),
+        "K7": (io + b * 24, n * (OPS["mask"] + OPS["lasso"] + OPS["gate"]
+                                 + OPS["recon"])),
+    }
+    n_bytes, ops = per[kernel]
+    return n_bytes, ops * b
+
+
+def bound(kernel: str, b: int, n: int, tissue: float = 1.0) -> dict:
+    """``bound_ms`` and ``bound_by`` of :func:`work`."""
+    n_bytes, ops = work(kernel, b, n, tissue)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def ptxas_summary(build_log: str) -> str:
@@ -127,6 +236,214 @@ def ptxas_summary(build_log: str) -> str:
             out.append(f"{name}: {m.group(1)} regs, spill {spill} B")
             name = None
     return "; ".join(out)
+
+
+def augment_phases(dev, smi, batch, batch_np, planar) -> list:
+    """Phases 30-36: the stain-augmentation paths and the torch-only
+    augmenters. Returns the ``kernels`` entries of K6 and K7."""
+    import stainlib_tpu_torch as st
+    from stainlib_tpu_torch.augmentation import functional as AF
+    from stainlib_tpu_torch.augmentation import geometric as AG
+    from stainlib_tpu_torch.augmentation import hsv as AH
+    from stainlib_tpu_torch.extraction.macenko import stain_matrix_macenko
+    from stainlib_tpu_torch.kernels import fused_stain as fs
+    from stainlib_tpu_torch.kernels import macenko_fused as mf
+    from stainlib_tpu_torch.kernels import vahadane_fused as vf
+
+    def gen(k):
+        return torch.Generator().manual_seed(SEED + k)
+
+    def draws(k, lead):
+        """The draws ``stain_augment`` makes from ``gen(k)``."""
+        return AF._stain_draws(gen(k), lead, 0.2, 0.2, dev)
+
+    def budget(got, want):
+        """(max, share > 1) against the functional path; gate <=1 u8 on
+        >99% of bytes, max <=4 (tests/test_macenko_fused.py:82-83,
+        tests/test_vahadane_fused.py:73-74)."""
+        mx, _, over1 = compare(got.cpu(), want)
+        assert mx <= 4 and over1 < 1e-2, (mx, over1)
+        return mx, over1
+
+    batch_cpu = batch.cpu()
+
+    # The Macenko path, counted: stain_augment on B tiles (K6).
+    mf.aug_launches = mf.augment_launches = 0
+    mac = AF.stain_augment(batch, gen(30), "macenko")
+    torch.cuda.synchronize()
+    k6_launches, k7_stray = mf.aug_launches, mf.augment_launches
+
+    # 30. K6 against its plain version; determinism.
+    assert (k6_launches, k7_stray) == (1, 0), (k6_launches, k7_stray)
+    assert mac.shape == batch.shape and mac.dtype == torch.uint8
+    alpha, beta = draws(30, (B,))
+    mx30, share30, _ = compare(mac, mf.macenko_augment_ref(batch, alpha,
+                                                           beta))
+    assert mx30 <= 1 and share30 < 1e-3, (mx30, share30)
+    assert torch.equal(AF.stain_augment(batch, gen(30), "macenko"), mac)
+    log(30, f"stain_augment('macenko') B={B} {SIDE}^2: main-path launches "
+            f"K6={k6_launches} K7={k7_stray}; K6 vs plain max={mx30} u8, "
+            f"share differing={share30:.3e} (gate: max<=1, share<1e-3); "
+            f"rerun identical")
+
+    # 31. K6 against the functional fit + pop on the CPU, same draws.
+    mx31, over31 = budget(mac, AF._stain_augment_pop_apply(
+        AF.stain_augment_fit(batch_cpu, "macenko"), alpha.cpu(),
+        beta.cpu()))
+    log(31, f"K6 vs functional stain_augment_fit + pop on the CPU: "
+            f"max={mx31} u8, share>1={over31:.3e} (gate: <=1 on >99%, "
+            f"max<=4)")
+
+    # The Vahadane path, counted: stain_augment on B tiles (K8, then K7).
+    vf.dict_launches = mf.augment_launches = mf.aug_launches = 0
+    vah = AF.stain_augment(batch, gen(31), "vahadane")
+    torch.cuda.synchronize()
+    v_launches = (vf.dict_launches, mf.augment_launches, mf.aug_launches)
+
+    # 32. K8 and K7 against their plain versions; the functional budget.
+    assert v_launches == (1, 1, 0), v_launches
+    a2, b2 = draws(31, (B,))
+    m8 = vf.vahadane_stain_matrix_planar(planar)
+    m8_plain = vf.vahadane_stain_matrix_planar_ref(planar)
+    e8 = float((m8 - m8_plain).abs().nan_to_num(0.0).max())
+    assert e8 <= 1e-5, e8
+    mx32, share32, _ = compare(vah, fs.from_planar(
+        vf.vahadane_augment_planar_ref(planar, a2, b2), SIDE, SIDE))
+    m7 = vf._prior_where_nan(m8_plain)
+    k7 = mf.augment_with_matrix_planar(planar, m7, a2, b2)
+    mx32b, share32b, _ = compare(k7, mf.augment_with_matrix_planar_ref(
+        planar, m7, a2, b2))
+    assert max(mx32, mx32b) <= 1 and max(share32, share32b) < 1e-3, (
+        mx32, share32, mx32b, share32b)
+    mx32c, over32c = budget(vah, AF._stain_augment_pop_apply(
+        AF.stain_augment_fit(batch_cpu, "vahadane"), a2.cpu(), b2.cpu()))
+    assert torch.equal(AF.stain_augment(batch, gen(31), "vahadane"), vah)
+    log(32, f"stain_augment('vahadane') B={B} {SIDE}^2: main-path launches "
+            f"K8={v_launches[0]} K7={v_launches[1]} K6={v_launches[2]}; K8 "
+            f"vs plain max |M| diff {e8:.3e} (atol 1e-5); K8+K7 vs plain "
+            f"max={mx32} u8, share differing={share32:.3e}; K7 alone vs "
+            f"plain max={mx32b} u8, share differing={share32b:.3e}; vs "
+            f"functional on the CPU max={mx32c} u8, share>1={over32c:.3e}; "
+            f"rerun identical")
+
+    # The drop-in path, counted: StainAugmentor fit on one image, 8 pops.
+    img = batch_np[0]
+    aug = st.StainAugmentor("macenko", seed=SEED, device=dev)
+    aug.fit(img)
+    assert aug._fused_state is not None, "fit did not cache the fused state"
+    mf.augment_launches = mf.aug_launches = 0
+    pops = [aug.pop() for _ in range(8)]
+    torch.cuda.synchronize()
+    pop_launches = (mf.augment_launches, mf.aug_launches)
+
+    # 33. One K7 launch per pop, fresh draws, the functional pop's budget.
+    assert pop_launches == (8, 0), pop_launches
+    assert all((a != b).any() for a, b in zip(pops, pops[1:]))
+    ref_gen = torch.Generator().manual_seed(SEED)
+    cpu_params = AF.stain_augment_fit(torch.from_numpy(img), "macenko")
+    q99 = []
+    for got in pops:
+        a, b = AF._stain_draws(ref_gen, (1,), 0.2, 0.2, "cpu")
+        want = AF._stain_augment_pop_apply(cpu_params, a[0], b[0]).numpy()
+        q99.append(float(np.quantile(np.abs(got.astype(int)
+                                            - want.astype(int)), 0.99)))
+    assert max(q99) <= 4, q99
+    log(33, f"StainAugmentor('macenko') {SIDE}^2 fit + 8 pops: main-path "
+            f"launches K7={pop_launches[0]} K6={pop_launches[1]}; "
+            f"consecutive pops differ; 99th-pct |pop - functional pop| "
+            f"max={max(q99)} u8 (gate <=4, tests/test_augmentation.py:201)")
+
+    # The large-field path, counted: stain_augment on one 2048^2 field.
+    side = FIELDS[-1]
+    field = torch.from_numpy(tiles(1, side, SEED + 40)[0]).to(dev)
+    mf.augment_launches = mf.aug_launches = 0
+    fout = AF.stain_augment(field, gen(32), "macenko")
+    torch.cuda.synchronize()
+    f_launches = (mf.augment_launches, mf.aug_launches)
+
+    # 34. K7 on the whole field against its plain version and the blocks.
+    assert f_launches == (1, 0), f_launches
+    fa, fb = (x.reshape(1, 2) for x in draws(32, ()))
+    mfield = vf._prior_where_nan(stain_matrix_macenko(field[None]))
+    mx34, share34, _ = compare(fout, mf.augment_with_matrix_ref(
+        field[None], mfield, fa, fb)[0])
+    assert mx34 <= 1 and share34 < 1e-3, (mx34, share34)
+    blocks = AF._augment_field(field[None], fa, fb, "macenko", block=512)
+    assert torch.equal(blocks[0], fout), "blockified K7 route differs"
+    log(34, f"stain_augment('macenko') one {side}^2 field: main-path "
+            f"launches K7={f_launches[0]} K6={f_launches[1]}; K7 vs plain "
+            f"max={mx34} u8, share differing={share34:.3e}; identical to the "
+            f"512^2-blockified route")
+
+    # 35. The torch-only augmenters on the card against their CPU
+    # evaluation with the same draws; time per batch.
+    geo = dict(rotation_range=30.0, width_shift_range=0.1,
+               height_shift_range=0.1, shear_range=10.0, zoom_range=0.2,
+               channel_shift_range=5.0, horizontal_flip=True,
+               vertical_flip=True)
+    cases = [("hed_jitter light", AF.hed_light),
+             ("hed_jitter strong", AF.hed_strong),
+             ("grayscale_augment", AF.grayscale_augment),
+             ("rgb_jitter", AF.rgb_jitter), ("hsv_jitter", AH.hsv_jitter),
+             ("random_geometric",
+              lambda x, g: AG.random_geometric(x, g, **geo))]
+    for k, (label, fn) in enumerate(cases):
+        card = fn(batch, gen(50 + k)).cpu()
+        cpu = fn(batch_cpu, gen(50 + k))
+        if card.dtype != torch.uint8:  # the warp returns floats
+            card, cpu = (torch.clamp(x, 0, 255).to(torch.uint8)
+                         for x in (card, cpu))
+        mx35, share35, over35 = compare(card, cpu)
+        assert over35 < 1e-2, (label, mx35, over35)
+        ms = time_ms(lambda: fn(batch, gen(50 + k)))
+        log(35, f"{label} B={B} {SIDE}^2 on the card vs on the CPU: "
+                f"max={mx35} u8, share differing={share35:.3e}, share>1="
+                f"{over35:.3e} (gate: <=1 on >99%); {ms:.3f} ms per batch "
+                f"(median of {REPS} CUDA-event runs); card '{smi}'")
+
+    # 36. Timing at the main paths' shapes, kernel and plain in turns.
+    t6 = time_pair(lambda: mf.macenko_augment(batch, alpha, beta),
+                   lambda: mf.macenko_augment_ref(batch, alpha, beta))
+    t7 = time_pair(
+        lambda: mf.augment_with_matrix_planar(planar, m7, a2, b2),
+        lambda: mf.augment_with_matrix_planar_ref(planar, m7, a2, b2))
+    t7f = time_pair(
+        lambda: mf.augment_with_matrix(field[None], mfield, fa, fb),
+        lambda: mf.augment_with_matrix_ref(field[None], mfield, fa, fb))
+    tv = time_pair(lambda: vf.vahadane_augment(batch, a2, b2),
+                   lambda: vf.vahadane_augment_planar_ref(planar, a2, b2))
+    for label, ((ka, kb), (pa, pb)) in (
+            (f"K6 B={B} {SIDE}^2", t6), (f"K7 B={B} {SIDE}^2", t7),
+            (f"K7 one {side}^2 field", t7f),
+            (f"vahadane_augment (K8 + K7) B={B} {SIDE}^2", tv)):
+        log(36, f"{label}, median of {REPS} CUDA-event runs (plain, kernel, "
+                f"kernel, plain): kernel {ka:.3f}/{kb:.3f} ms; plain "
+                f"{pa:.3f}/{pb:.3f} ms; card '{smi}'")
+    for label, fn, name in (
+            (f"K6 B={B} {SIDE}^2",
+             lambda: mf.macenko_augment(batch, alpha, beta),
+             "macenko_augment_kernel"),
+            (f"K7 B={B} {SIDE}^2",
+             lambda: mf.augment_with_matrix_planar(planar, m7, a2, b2),
+             "augment_apply_kernel"),
+            (f"K7 one {side}^2 field",
+             lambda: mf.augment_with_matrix(field[None], mfield, fa, fb),
+             "augment_apply_kernel")):
+        log(36, f"{label}, the kernel alone (torch.profiler device time per "
+                f"call, {REPS} calls): {fmt_ms(device_ms(fn, name))}")
+    k7_launches = v_launches[1] + pop_launches[0] + f_launches[0]
+    return [
+        dict(name="macenko_augment_planar", route="cuda",
+             source="stainlib_tpu_torch/kernels/csrc/macenko_fused.cu",
+             replaces="stainlib_tpu/kernels/macenko_fused.py:822",
+             launches=k6_launches, max_abs_err=mx30, ms=min(t6[0]),
+             plain_ms=min(t6[1])),
+        dict(name="augment_with_matrix_planar", route="cuda",
+             source="stainlib_tpu_torch/kernels/csrc/macenko_fused.cu",
+             replaces="stainlib_tpu/kernels/macenko_fused.py:886",
+             launches=k7_launches, max_abs_err=max(mx32b, mx34),
+             ms=min(t7[0]), plain_ms=min(t7[1])),
+    ]
 
 
 def main() -> int:
@@ -218,6 +535,7 @@ def run(dev) -> int:
 
     # 5. Kernel against the port's functional path (validate_tpu.py gate).
     want = extractive.transform(params, batch)
+    mac_func_card = want
     mx5, _, over1 = compare(out, want)
     assert mx5 <= 2 and over1 < 1e-2, (mx5, over1)
     log(5, f"K1 vs functional extractive.transform: max={mx5} u8, "
@@ -490,6 +808,10 @@ def run(dev) -> int:
         log(23, f"{label}, median of {REPS} CUDA-event runs (plain, "
                 f"kernel, kernel, plain): kernel {ka:.3f}/{kb:.3f} ms; "
                 f"plain {pa:.3f}/{pb:.3f} ms; card '{smi}'")
+    d3 = device_ms(lambda: mf.normalize_with_matrix(field, *k3_args),
+                   "matrix_apply_kernel")
+    log(23, f"K3 {FIELDS[-1]}^2 field, the kernel alone (torch.profiler "
+            f"device time per call, {REPS} calls): {fmt_ms(d3)}")
     kernels += [
         dict(name="normalize_with_matrix_planar", route="cuda",
              source="stainlib_tpu_torch/kernels/csrc/macenko_fused.cu",
@@ -580,6 +902,7 @@ def run(dev) -> int:
     mx27c, share27c, over27c = compare(rout, reinhard.transform(rparams,
                                                                 batch))
     assert share27c < 1e-2, share27c
+    rf_card_cpu = compare(reinhard.transform(rparams, batch).cpu(), want_cpu)
     log(27, f"K5 vs functional reinhard.transform on the CPU: max={mx27} "
             f"u8, share differing={share27:.3e}, share>1={over27:.3e} "
             f"(gate: <=1 on >99%, max<=3); vs the functional path on the "
@@ -610,6 +933,46 @@ def run(dev) -> int:
         replaces="stainlib_tpu/kernels/reinhard_fused.py:197",
         launches=r_launches, max_abs_err=max(mx26, mx26b), ms=min(t5[0]),
         plain_ms=min(t5[1])))
+
+    # ---- Stain augmentation (K6, K7; K8 reused) ---------------------------
+    kernels += augment_phases(dev, smi, batch, batch_np, planar)
+
+    # 37. The functional paths on the card against their CPU evaluation
+    # (reported, not gated): fixed-order contractions round alike on both;
+    # torch.pow, log and exp in CUDA's libm still may not.
+    mx37, share37, over37 = compare(mac_func_card.cpu(), extractive.transform(
+        extractive.ExtractiveParams(params.stain_matrix_target.cpu(),
+                                    params.max_c_target.cpu()), batch.cpu()))
+    log(37, f"functional Macenko extractive.transform B={B} {SIDE}^2 on the "
+            f"card vs on the CPU: max={mx37} u8, share differing="
+            f"{share37:.3e}, share>1={over37:.3e}; functional Reinhard: "
+            f"max={rf_card_cpu[0]} u8, share differing="
+            f"{rf_card_cpu[1]:.3e}, share>1={rf_card_cpu[2]:.3e} (phase 27)")
+
+    # Each kernel's bound at the shapes of its timed call, with the tissue
+    # share of these inputs (the masked passes count tissue pixels only).
+    n_sub = sub_planar.shape[2] * sub_planar.shape[3]
+    t_batch = float(mf._od_and_mask(planar, 0.8)[3].float().mean())
+    t_sub = float(mf._od_and_mask(sub_planar, 0.8)[3].float().mean())
+    n_tile = SIDE * SIDE
+    shapes = {
+        "macenko_normalize_planar": ("K1", B, n_tile, t_batch),
+        "vahadane_normalize_planar": ("K2", B, n_tile, t_batch),
+        "vahadane_stain_matrix_planar": ("K8", B, n_tile, t_batch),
+        "fused_normalize_planar": ("K9", B, n_tile),
+        "normalize_with_matrix_planar": ("K3", 1, FIELDS[-1] ** 2),
+        "macenko_fit_planar": ("K4", 1, n_sub, t_sub),
+        "eigenplane": ("K10", B, n_tile, t_batch),
+        "reinhard_normalize_planar": ("K5", B, n_tile),
+        "macenko_augment_planar": ("K6", B, n_tile, t_batch),
+        "augment_with_matrix_planar": ("K7", B, n_tile),
+    }
+    log(37, f"tissue share of the B={B} batch {t_batch:.4f}, of the "
+            f"{FIELDS[-1]}^2 field's subsample {t_sub:.4f} (the bounds' "
+            f"masked passes)")
+    for k in kernels:
+        k.update(bound(*shapes[k["name"]]), library_ms=None)
+    assert len(kernels) == 10, [k["name"] for k in kernels]
 
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

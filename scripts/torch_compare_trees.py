@@ -1,0 +1,143 @@
+"""Compare the PyTorch/CUDA port's kernels in two source trees on one GPU.
+
+    python scripts/torch_compare_trees.py OTHER_TREE
+
+Runs this tree's and ``OTHER_TREE``'s ``stainlib_tpu_torch`` each in its
+own process on the same inputs (synthetic H&E tiles from
+``tests/synth.py`` and fixed target stain matrices, from a seed), saves
+every kernel's output, then prints one line per kernel: how many output
+values differ between the two trees and by how much, and, in each tree,
+whether the kernel equals its plain PyTorch version on the card. The
+kernels: K1, K2, K8, K9 and K4, K10 at 256 tiles of 256x256, K3 on one
+2048x2048 field. ``OTHER_TREE`` is a checkout of another commit, e.g.
+``git archive <commit> | tar -x -C .runs/parent``. Exits non-zero without
+a CUDA device. The last line is a JSON object with the same figures.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+SEED = 20261016
+B, SIDE, FIELD = 256, 256, 2048
+FAST = dict(fit_stride=2, n_bisect=10)
+VFAST = dict(fit_stride=2, num_iters=8, n_bisect=10)
+# Target stain rows and 99th-percentile concentrations: the order of
+# magnitude of an H&E fit; fixed so both trees see the same numbers.
+M_TGT = [[0.5626, 0.7201, 0.4062], [0.2159, 0.8012, 0.5581]]
+MC_TGT = [1.9, 1.3]
+
+
+def _synth():
+    spec = importlib.util.spec_from_file_location(
+        "stain_synth", ROOT / "tests" / "synth.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def dump(tree: Path, out: Path) -> None:
+    """Every kernel's output, and its plain version's, in ``tree``."""
+    sys.path.insert(0, str(tree))
+    from stainlib_tpu_torch.kernels import fused_stain as fs
+    from stainlib_tpu_torch.kernels import macenko_fused as mf
+    from stainlib_tpu_torch.kernels import vahadane_fused as vf
+
+    assert Path(mf.__file__).resolve().is_relative_to(tree.resolve()), (
+        mf.__file__, tree)
+    dev = torch.device("cuda", 0)
+    synth = _synth()
+    batch = torch.from_numpy(synth.he_batch(B, SIDE, SIDE, seed=SEED)).to(dev)
+    planar = fs.to_planar(batch).contiguous()
+    field = torch.from_numpy(
+        synth.he_batch(1, FIELD, FIELD, seed=SEED + 1)).to(dev)
+    M = torch.tensor(M_TGT, device=dev)
+    mc = torch.tensor(MC_TGT, device=dev)
+    m8_plain = vf.vahadane_stain_matrix_planar_ref(planar)
+    cases = {
+        "K1": (lambda: mf.macenko_normalize(batch, M, mc, **FAST),
+               lambda: mf.macenko_normalize_ref(batch, M, mc, **FAST)),
+        "K2": (lambda: vf.vahadane_normalize(batch, M, mc, **VFAST),
+               lambda: vf.vahadane_normalize_ref(batch, M, mc, **VFAST)),
+        "K8": (lambda: vf.vahadane_stain_matrix_planar(planar),
+               lambda: m8_plain),
+        "K9": (lambda: fs.fused_normalize_planar(planar, m8_plain, M, mc),
+               lambda: fs.fused_normalize_planar_ref(planar, m8_plain, M,
+                                                     mc)),
+        "K3": (lambda: mf.normalize_with_matrix(field, M, mc * 1.1, M, mc),
+               lambda: mf.normalize_with_matrix_ref(field, M, mc * 1.1, M,
+                                                    mc)),
+        "K4": (lambda: torch.cat([x.reshape(B, -1) for x in
+                                  mf.macenko_fit_planar(planar)], 1),
+               lambda: torch.cat([x.reshape(B, -1) for x in
+                                  mf.macenko_fit_planar_ref(planar)], 1)),
+        "K10": (lambda: mf.eigenplane(planar),
+                lambda: mf.eigenplane_ref(planar)),
+    }
+    res = {name: {"kernel": k().cpu(), "plain": p().cpu()}
+           for name, (k, p) in cases.items()}
+    torch.cuda.synchronize()
+    torch.save(res, out)
+
+
+def _diff(a, b):
+    """(values that differ, max |difference|), NaN equal to NaN."""
+    a, b = a.double(), b.double()
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    d = (a - b).abs().nan_to_num(0.0)
+    return int((~same).sum()), float(d.max()) if d.numel() else 0.0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("other", type=Path)
+    ap.add_argument("--dump", nargs=2, metavar=("TREE", "FILE"),
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_compare_trees: no CUDA device", file=sys.stderr)
+        return 2
+    if args.dump:
+        dump(Path(args.dump[0]), Path(args.dump[1]))
+        return 0
+    trees = {"other": args.other.resolve(), "this": ROOT}
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, tree in trees.items():
+            f = Path(tmp) / f"{label}.pt"
+            subprocess.run([sys.executable, __file__, str(args.other),
+                            "--dump", str(tree), str(f)], check=True,
+                           cwd=tree)
+            res[label] = torch.load(f)
+    other, this = res["other"], res["this"]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    summary = {"card": smi, "kernels": {}}
+    for name in this:
+        n, mx = _diff(this[name]["kernel"], other[name]["kernel"])
+        n_this, _ = _diff(this[name]["kernel"], this[name]["plain"])
+        n_other, _ = _diff(other[name]["kernel"], other[name]["plain"])
+        total = this[name]["kernel"].numel()
+        summary["kernels"][name] = dict(
+            values=total, differ_between_trees=n, max_abs_diff=mx,
+            this_vs_plain_differ=n_this, other_vs_plain_differ=n_other)
+        print(f"{name}: {n} of {total} values differ between the trees "
+              f"(share {n / total:.3e}, max |diff| {mx:.6g}); kernel vs "
+              f"plain differs at {n_this} (this tree), {n_other} (other)",
+              flush=True)
+    print(json.dumps(summary), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,14 +2,15 @@
 
 Same module paths and function names as the JAX package, which stays the
 reference every module here is tested against. It covers the Macenko,
-Vahadane and Reinhard normalize paths: the functional ops, Macenko and
-Vahadane extraction (with the dictionary learner), extractive
-fit/transform with the tiled route for large fields, Reinhard
-fit/transform, the drop-in object API, and the fused kernels
-(``kernels/macenko_fused.py``, ``kernels/vahadane_fused.py``,
-``kernels/fused_stain.py``, ``kernels/reinhard_fused.py``), hand-written
-in CUDA C++ for Hopper (``kernels/csrc/``) and built with ``nvcc`` at
-first use.
+Vahadane and Reinhard normalize paths and stain augmentation: the
+functional ops, Macenko and Vahadane extraction (with the dictionary
+learner), extractive fit/transform with the tiled route for large fields,
+Reinhard fit/transform, the augmentation package (HED, grayscale, HSV,
+RGB and geometric jitter, stain-concentration augmentation), the drop-in
+object API, and the fused kernels (``kernels/macenko_fused.py``,
+``kernels/vahadane_fused.py``, ``kernels/fused_stain.py``,
+``kernels/reinhard_fused.py``), hand-written in CUDA C++ for Hopper
+(``kernels/csrc/``) and built with ``nvcc`` at first use.
 
 Importing the package imports ``torch`` only: never jax, never
 the JAX package, and it builds nothing.
@@ -36,6 +37,15 @@ from stainlib_tpu_torch.api import (  # noqa: E402
     VahadaneStainExtractor,
     get_concentrations,
 )
+from stainlib_tpu_torch.augmentation import (  # noqa: E402
+    GrayscaleAugmentor,
+    HedColorAugmenter,
+    HedColorAugmenter1,
+    HedLightColorAugmenter,
+    HedLighterColorAugmenter,
+    HedStrongColorAugmenter,
+    StainAugmentor,
+)
 from stainlib_tpu_torch.exceptions import (  # noqa: E402
     DigitalPathologyAugmentationError,
     DigitalPathologyError,
@@ -46,6 +56,13 @@ from stainlib_tpu_torch.exceptions import (  # noqa: E402
 __version__ = "0.1.0"
 
 __all__ = [
+    "HedColorAugmenter",
+    "HedColorAugmenter1",
+    "HedLighterColorAugmenter",
+    "HedLightColorAugmenter",
+    "HedStrongColorAugmenter",
+    "GrayscaleAugmentor",
+    "StainAugmentor",
     "ExtractiveStainNormalizer",
     "ReinhardStainNormalizer",
     "MacenkoStainExtractor",

@@ -1,10 +1,12 @@
 """Carry fitted state from the JAX package into the port.
 
-The counterparts of the JAX package's fitted targets: ``ExtractiveParams``
-(``normalization/extractive.py:35-39``, ``normalizer.py:27-37``) and
+The counterparts of the JAX package's fitted state: ``ExtractiveParams``
+(``normalization/extractive.py:35-39``, ``normalizer.py:27-37``),
 ``ReinhardParams`` (``normalization/reinhard.py:24-28``,
-``normalizer.py:64-68``). Given the JAX fit as numpy arrays, build the
-port's params, so both packages can transform against the same target.
+``normalizer.py:64-68``), and the stain augmenter's ``StainAugmentParams``
+and ``FusedStainAugmentState`` (``augmentation/functional.py:149-196``).
+Given the JAX fit as numpy arrays, build the port's, so both packages can
+transform or pop from the same state.
 """
 
 from __future__ import annotations
@@ -12,6 +14,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from stainlib_tpu_torch.augmentation.functional import (
+    FusedStainAugmentState,
+    StainAugmentParams,
+)
 from stainlib_tpu_torch.normalization.extractive import ExtractiveParams
 from stainlib_tpu_torch.normalization.reinhard import ReinhardParams
 
@@ -31,3 +37,24 @@ def reinhard_params_from_jax(means, stds, device) -> ReinhardParams:
     """``np.asarray`` of a JAX ``ReinhardParams``' ``means`` and ``stds`` ->
     the port's ``ReinhardParams`` on ``device``, float32."""
     return ReinhardParams(means=_to(means, device), stds=_to(stds, device))
+
+
+def stain_augment_params_from_jax(stain_matrix, concentrations, mask,
+                                  device) -> StainAugmentParams:
+    """``np.asarray`` of a JAX ``StainAugmentParams``' fields -> the port's
+    ``StainAugmentParams`` on ``device``: float32 matrix and
+    concentrations, boolean mask."""
+    return StainAugmentParams(
+        stain_matrix=_to(stain_matrix, device),
+        concentrations=_to(concentrations, device),
+        mask=torch.tensor(np.array(mask, bool), device=device))
+
+
+def fused_augment_state_from_jax(planar, stain_matrix, h: int, w: int,
+                                 device) -> FusedStainAugmentState:
+    """``np.asarray`` of a JAX ``FusedStainAugmentState``' planar uint8
+    tiles and stain matrices, with its ``h`` and ``w`` -> the port's
+    ``FusedStainAugmentState`` on ``device``."""
+    return FusedStainAugmentState(
+        planar=torch.tensor(np.array(planar, np.uint8), device=device),
+        stain_matrix=_to(stain_matrix, device), h=int(h), w=int(w))

@@ -76,6 +76,14 @@ _ARGTYPES = {
         _i32, _ptr, _ptr, _ptr, _ptr,  # device, in, out, scal, lut
         _i32, _i32, _i32, _i32,  # batch, n_pix, pix/ch stride
         _ptr],  # stream
+    "augment_launch": [
+        _i32, _ptr, _ptr, _ptr, _ptr,  # device, in, out, scal, luts
+        _i32, _i32, _i32, _i32,  # batch, n_pix, pix/ch stride
+        _f32, _f32, _i32, _ptr],  # q_lo, q_hi, it_angle, stream
+    "augment_apply_launch": [
+        _i32, _ptr, _ptr, _ptr, _ptr,  # device, in, out, scal, luts
+        _i32, _i32, _i32, _i32,  # batch, n_pix, pix/ch stride
+        _ptr],  # stream
     "reinhard_normalize_launch": [
         _i32, _ptr, _ptr, _ptr, _ptr,  # device, in, out, scal, lin
         _i32, _i32, _i32, _i32,  # batch, n_pix, pix/ch stride

@@ -1,6 +1,7 @@
 // Fused Macenko kernels (sm_90a): the fit + transform (K1), the fit alone
-// (K4), the masked OD moments of the eigenplane (K10), and the fixed-matrix
-// apply (K3).
+// (K4), the masked OD moments of the eigenplane (K10), the fixed-matrix
+// apply (K3), and the stain-augmentation kernels: the fused augment (K6)
+// and the augment apply (K7).
 //
 // macenko_apply_kernel, one thread block per tile, replaces the Pallas TPU
 // kernel macenko_normalize_planar / _apply_kernel (the JAX package's
@@ -44,6 +45,23 @@
 // launched over (pixel chunks x images) rather than one block per tile:
 // a 2048^2 field is one image. Bound by bytes (3 in, 3 out per pixel) and
 // the per-pixel lasso and three expf.
+//
+// macenko_augment_kernel, one thread block per tile, replaces the Pallas
+// TPU kernel macenko_augment_planar / _augment_kernel with estimate=True
+// (:754-813, :822-871): StainAugmentor fit + pop. K1's phases 1-3 on the
+// whole tile (the moments, the eigenplane, both angular bisections counted
+// in one pass per round, the successor recovery), then per pixel the exact
+// lasso, C*alpha+beta where the pixel is tissue (or every pixel with the
+// background flag), 255*exp(-C M) through the tile's own rows. K1 without
+// its maxC percentiles and with the gate; bound and design as K1 (14
+// passes over the tile at the default 10 angle rounds).
+//
+// augment_apply_kernel replaces augment_with_matrix_planar / the
+// _augment_kernel with estimate=False (:886-929): the same per-pixel part
+// against given rows. Per pixel with no reduction, so it takes K3's launch
+// shape (pixel chunks x images); unlike K3 it needs the tissue mask, so it
+// loads all four rows of K1's tables and the per-image threshold. Bound by
+// bytes (3 in, 3 out per pixel) and the per-pixel lasso and three expf.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -168,6 +186,49 @@ __global__ void __launch_bounds__(kApplyThreads) matrix_apply_kernel(
   }
 }
 
+// K6. scal: the (B, 16) augment table (stain::AugScal), rows unused;
+// the threshold at [11] replaces Args.y_thr.
+constexpr int kAugScal = 16;
+
+__global__ void __launch_bounds__(kThreads, 2) macenko_augment_kernel(Args a) {
+  __shared__ Shared sh;
+  const float* s = a.scal + blockIdx.x * kAugScal;
+  stain::Tile t = load_tile(a, sh);
+  t.y_thr = s[11];
+  float he[6];
+  stain::macenko_rows<kThreads>(t, a.q_lo, a.q_hi, a.it_angle, sh.fbuf,
+                                sh.ibuf, sh.dbuf, sh.v_sh, he);
+  const stain::Gram g = stain::gram(he);
+  const stain::AugScal as = stain::aug_scal(s);
+  uint8_t* dst = static_cast<uint8_t*>(a.out) + (size_t)blockIdx.x * 3 * a.n_pix;
+  for (int p = threadIdx.x; p < t.n_pix; p += kThreads)
+    stain::augment_pixel(t, p, dst, he, g, as);
+}
+
+// K7. scal: the (B, 16) augment table, rows at [0:6]; luts: K1's four
+// tables (OD, three luminance terms).
+__global__ void __launch_bounds__(kApplyThreads) augment_apply_kernel(
+    const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
+    const float* __restrict__ scal, const float* __restrict__ luts,
+    int n_pix, int pix_stride, int ch_stride) {
+  __shared__ float lut[4][256];
+  for (int i = threadIdx.x; i < 4 * 256; i += kApplyThreads)
+    lut[i >> 8][i & 255] = luts[i];
+  __syncthreads();
+  const float* s = scal + blockIdx.y * kAugScal;
+  float he[6];
+  for (int i = 0; i < 6; ++i) he[i] = s[i];
+  const stain::Gram g = stain::gram(he);
+  const stain::AugScal as = stain::aug_scal(s);
+  const size_t img_off = (size_t)blockIdx.y * 3 * n_pix;
+  const stain::Tile t{in + img_off, lut, n_pix, pix_stride, ch_stride,
+                      1, n_pix, n_pix, s[11]};
+  uint8_t* dst = out + img_off;
+  const int stride = gridDim.x * kApplyThreads;
+  for (int p = blockIdx.x * kApplyThreads + threadIdx.x; p < n_pix; p += stride)
+    stain::augment_pixel(t, p, dst, he, g, as);
+}
+
 Args make_args(const void* in, void* out, const void* scal, const void* luts,
                int n_pix, int pix_stride, int ch_stride, int nblk, int blk,
                int stp, float y_thr, float lam, float q_lo, float q_hi,
@@ -252,6 +313,36 @@ extern "C" cudaError_t matrix_normalize_launch(
   matrix_apply_kernel<<<grid, kApplyThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out),
       static_cast<const float*>(scal), static_cast<const float*>(lut), n_pix,
+      pix_stride, ch_stride);
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t augment_launch(
+    int device, const void* in, void* out, const void* scal, const void* luts,
+    int batch, int n_pix, int pix_stride, int ch_stride, float q_lo,
+    float q_hi, int it_angle, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (batch == 0) return cudaSuccess;
+  // The estimate covers the whole tile: a one-block sample.
+  const Args a = make_args(in, out, scal, luts, n_pix, pix_stride, ch_stride,
+                           1, n_pix, n_pix, 0.0f, 0.0f, q_lo, q_hi, 0.0f,
+                           it_angle, 0);
+  macenko_augment_kernel<<<batch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t augment_apply_launch(
+    int device, const void* in, void* out, const void* scal, const void* luts,
+    int batch, int n_pix, int pix_stride, int ch_stride, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (batch == 0 || n_pix == 0) return cudaSuccess;
+  const int per_block = kApplyThreads * kApplyPixels;
+  const dim3 grid((n_pix + per_block - 1) / per_block, batch);
+  augment_apply_kernel<<<grid, kApplyThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out),
+      static_cast<const float*>(scal), static_cast<const float*>(luts), n_pix,
       pix_stride, ch_stride);
   return cudaGetLastError();
 }

@@ -248,10 +248,11 @@ def _od_lasso_table(device):
     """(256,) float32 OD of a byte as ``_od_lasso`` computes it
     (``fused_stain.py:154-156``): ``max(-log(max(u, 1) * (1/255)), 1e-6)``.
     In float32 this differs from ``_od_and_mask``'s OD (the Macenko and
-    Vahadane kernels' tables) in the last bit for 100 of the 256 values."""
-    u = torch.arange(256, dtype=torch.float32, device=device)
+    Vahadane kernels' tables) in the last bit for 100 of the 256 values.
+    Built on the CPU and copied, once per device."""
+    u = torch.arange(256, dtype=torch.float32)
     return torch.clamp_min(-torch.log(torch.clamp_min(u, 1.0) * (1.0 / 255.0)),
-                           1e-6).contiguous()
+                           1e-6).to(device).contiguous()
 
 
 def _od_lasso(rgb_planar, h, e, lam):

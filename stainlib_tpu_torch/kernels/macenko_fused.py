@@ -1,5 +1,6 @@
 """Fused Macenko kernels: fit + transform (K1), fit alone (K4), the
-eigenplane (K10) and the fixed-matrix apply (K3).
+eigenplane (K10), the fixed-matrix apply (K3), and the stain-augmentation
+kernels: the fused augment (K6) and the augment apply (K7).
 
 Port of the JAX package's ``kernels/macenko_fused.py``:
 
@@ -13,31 +14,41 @@ Port of the JAX package's ``kernels/macenko_fused.py``:
   moments per tile, then torch glue to the top-2 eigenplane;
 * K3 ``normalize_with_matrix_planar`` (``:936-991``, body
   ``_augment_kernel`` with a fixed matrix): lasso against given source
-  rows, rescale, reconstruction through the target, per pixel.
+  rows, rescale, reconstruction through the target, per pixel;
+* K6 ``macenko_augment_planar`` (``:822-871``, body ``_augment_kernel``
+  ``:754-813`` with ``estimate=True``): ``StainAugmentor`` fit + pop per
+  tile (``stainlib/augmentation/augmenter.py:403-448``): the in-kernel
+  Macenko estimate, the exact lasso, ``C*alpha+beta`` on tissue pixels
+  (every pixel with ``augment_background``), reconstruction through the
+  tile's own rows;
+* K7 ``augment_with_matrix_planar`` (``:886-929``, the same body with
+  ``estimate=False``): the same per-pixel part against given rows, per
+  pixel: ``StainAugmentor.pop`` with the fit hoisted out.
 
 Kernel source note (``csrc/macenko_fused.cu``):
 
-* Replaces the four Pallas TPU kernels above.
-* Bound: K1 and K4 by work per pixel, not bytes (2 x 196 KB per 256^2
-  tile): a chain of about 25 dependent block-wide reductions (moments,
-  angle min/max, the angle and concentration bisection rounds, the
-  successor recoveries) with scalar 3x3 work between them; once two tiles
-  share an SM the time follows the pass count. K10 is one pass; K3 has no
-  reduction, a lasso and three ``expf`` per pixel.
-* Design: K1, K4, K10 run one 512-thread block per tile; every phase is a
-  strided pass over the tile's pixels followed by a warp-shuffle +
+* Replaces the six Pallas TPU kernels above.
+* Bound: K1, K4 and K6 by work per pixel, not bytes (2 x 196 KB per 256^2
+  tile): a chain of about 25 (K6: 14) dependent block-wide reductions
+  (moments, angle min/max, the angle and concentration bisection rounds,
+  the successor recoveries) with scalar 3x3 work between them; once two
+  tiles share an SM the time follows the pass count. K10 is one pass; K3
+  and K7 have no reduction: a lasso and three ``expf`` per pixel, bytes in
+  and out.
+* Design: K1, K4, K6, K10 run one 512-thread block per tile; every phase
+  is a strided pass over the tile's pixels followed by a warp-shuffle +
   shared-memory reduction in a fixed order (no float atomics, so the
   output is bit-reproducible). The tile is re-read from device memory on
   every pass and L2 keeps it close; OD and the luminance terms come from
-  256-entry tables built here, so the kernels take no ``log`` per pass and
-  see the same OD bits as the plain versions. K3 runs over (pixel chunks x
-  images), so one large field fills the card.
+  256-entry tables built on the CPU, so the kernels take no ``log`` per
+  pass and see the same OD bits as the plain versions. K3 and K7 run over
+  (pixel chunks x images), so one large field fills the card.
 
 On a CUDA tensor the wrappers launch the kernels; on a CPU tensor they run
 the plain torch versions (``*_ref``), which mirror the TPU kernels step for
 step and are the kernels' oracles. ``launches``, ``fit_launches``,
-``eigenplane_launches`` and ``matrix_launches`` count the launches of K1,
-K4, K10 and K3.
+``eigenplane_launches``, ``matrix_launches``, ``aug_launches`` and
+``augment_launches`` count the launches of K1, K4, K10, K3, K6 and K7.
 """
 
 from __future__ import annotations
@@ -68,6 +79,8 @@ launches = 0
 matrix_launches = 0
 fit_launches = 0
 eigenplane_launches = 0
+aug_launches = 0  # K6
+augment_launches = 0  # K7
 
 # Degree-6 fit of ((c+0.055)/1.055)^2.4 on [0.04045, 1] (max error 7.4e-6),
 # the JAX kernel's mask linearization (macenko_fused.py:54-57), kept so the
@@ -85,16 +98,18 @@ def _tables(device):
     """(4, 256) float32 lookup tables indexed by a uint8 channel value:
     row 0 the OD ``max(-log(max(c*255, 1)/255), 1e-6)`` with c = u/255,
     rows 1-3 each channel's weighted linear luminance — the f32 expressions
-    of ``_od_and_mask`` (``macenko_fused.py:60-85``). Built once per
-    device; the kernel and the plain version read the same table."""
-    c = torch.arange(256, dtype=torch.float32, device=device) / 255.0
+    of ``_od_and_mask`` (``macenko_fused.py:60-85``). Built on the CPU and
+    copied, once per device, so the kernel and the plain version read the
+    same table on every device (torch's CUDA ``log`` and its division by a
+    scalar round differently from the CPU's)."""
+    c = torch.arange(256, dtype=torch.float32) / 255.0
     od = torch.clamp_min(-torch.log(torch.clamp_min(c * 255.0, 1.0) / 255.0),
                          1e-6)
     acc = torch.full_like(c, _GAMMA_POLY[0])
     for coef in _GAMMA_POLY[1:]:
         acc = acc * c + coef
     lin = torch.where(c <= 0.04045, c / 12.92, acc)
-    return torch.stack([od] + [w * lin for w in _LUMA]).contiguous()
+    return torch.stack([od] + [w * lin for w in _LUMA]).to(device).contiguous()
 
 
 def _y_threshold(luminosity_threshold: float) -> float:
@@ -652,3 +667,217 @@ def normalize_with_matrix(rgb, stain_matrix_src, max_c_src, stain_matrix_tgt,
     if rgb.device.type == "cpu":
         return normalize_with_matrix_ref(rgb, *args)
     return _matrix_launch(rgb, False, *args)
+
+
+# ---------------------------------------------------------------------------
+# K6 and K7: stain augmentation (StainAugmentor, augmenter.py:403-448).
+# ---------------------------------------------------------------------------
+
+_AUG_SCAL = 16  # width of the augment kernels' per-image table
+
+
+def _augment_scalars(stain_matrix, alpha, beta, regularizer: float,
+                     luminosity_threshold: float, augment_background: bool,
+                     batch, device):
+    """The augment kernels' (B, 16) per-image table, ``_augment_kernel``'s
+    ``scal`` layout (``:842-854, :902-914``): [0:6] stain rows (zeros for
+    K6, which estimates them), [6:8] alpha, [8:10] beta, [10] the lasso
+    regularizer, [11] the linear-luminance threshold of
+    ``luminosity_threshold``, [12] the background flag, [13:16] pad."""
+    rows = (torch.zeros((batch, 6), dtype=torch.float32, device=device)
+            if stain_matrix is None
+            else _per_tile(stain_matrix, 6, batch, device))
+
+    def col(v):
+        return torch.full((batch, 1), v, dtype=torch.float32, device=device)
+
+    return torch.cat([rows, _per_tile(alpha, 2, batch, device),
+                      _per_tile(beta, 2, batch, device), col(regularizer),
+                      col(_y_threshold(luminosity_threshold)),
+                      col(1.0 if augment_background else 0.0),
+                      torch.zeros((batch, 3), dtype=torch.float32,
+                                  device=device)], dim=1).contiguous()
+
+
+def _augment_pixels(od0, od1, od2, mask, h, e, scal):
+    """``_augment_kernel``'s per-pixel part (``:797-813``): the exact lasso
+    against the rows ``h``/``e`` (3 lists of (B,)), ``C*alpha+beta`` where
+    the pixel is tissue or the background flag is set, reconstruction
+    through the same rows. (B, N) planes in, (B, 3, N) uint8 out."""
+    c1, c2 = _lasso2(od0, od1, od2, h, e, scal[:, 10, None])
+    gate = mask | (scal[:, 12, None] > 0.5)
+    c1 = torch.where(gate, c1 * scal[:, 6, None] + scal[:, 8, None], c1)
+    c2 = torch.where(gate, c2 * scal[:, 7, None] + scal[:, 9, None], c2)
+    return _reconstruct_u8(c1, c2, torch.stack(list(h) + list(e), dim=1))
+
+
+def macenko_augment_planar_ref(rgb_planar, alpha, beta,
+                               luminosity_threshold: float = 0.8,
+                               angular_percentile: float = 99.0,
+                               regularizer: float = 0.01,
+                               augment_background: bool = False,
+                               n_bisect: int = 14):
+    """Plain torch version of K6 over planar (B, 3, R, 128) uint8 tiles,
+    step for step ``_augment_kernel`` with ``estimate=True``: K1's Macenko
+    estimate on the whole tile, then :func:`_augment_pixels`."""
+    B, _, R, L = rgb_planar.shape
+    scal = _augment_scalars(None, alpha, beta, regularizer,
+                            luminosity_threshold, augment_background, B,
+                            rgb_planar.device)
+    od0, od1, od2, mask = _od_and_mask(rgb_planar, luminosity_threshold)
+    _, h, e = _macenko_rows(od0, od1, od2, mask, angular_percentile,
+                            n_bisect)
+    return _augment_pixels(od0, od1, od2, mask, h, e, scal).reshape(
+        B, 3, R, L)
+
+
+def macenko_augment_ref(rgb, alpha, beta, **kw):
+    """Plain version of K6 over (B, H, W, 3) uint8 tiles."""
+    _, H, W, _ = rgb.shape
+    return from_planar(macenko_augment_planar_ref(to_planar(rgb), alpha,
+                                                  beta, **kw), H, W)
+
+
+def _aug_launch(x, planar: bool, alpha, beta,
+                luminosity_threshold: float = 0.8,
+                angular_percentile: float = 99.0, regularizer: float = 0.01,
+                augment_background: bool = False, n_bisect: int = 14):
+    global aug_launches
+    from stainlib_tpu_torch.kernels import _build
+
+    B, dev = x.shape[0], x.device
+    n_pix = _n_pix(x, planar)
+    scal = _augment_scalars(None, alpha, beta, regularizer,
+                            luminosity_threshold, augment_background, B, dev)
+    out = torch.empty_like(x)
+    pix_stride, ch_stride = (1, n_pix) if planar else (3, 1)
+    _build.launch("augment_launch", dev, x.data_ptr(),
+                  out.data_ptr(), scal.data_ptr(), _tables(dev).data_ptr(),
+                  B, n_pix, pix_stride, ch_stride,
+                  (100.0 - angular_percentile) / 100.0,
+                  angular_percentile / 100.0, max(n_bisect - 4, 8))
+    aug_launches += 1
+    return out
+
+
+def macenko_augment_planar(rgb_planar, alpha, beta,
+                           luminosity_threshold: float = 0.8,
+                           angular_percentile: float = 99.0,
+                           regularizer: float = 0.01,
+                           augment_background: bool = False,
+                           n_bisect: int = 14):
+    """Fused ``StainAugmentor`` fit + pop over planar (B, 3, R, 128) uint8
+    tiles (``macenko_fused.py:822-871``). ``alpha``/``beta``: (B, 2) or
+    (2,) per-image per-stain draws; the caller holds the random draws, as
+    ``stain_augment_pop`` does. Per tile: the Macenko estimate on the whole
+    tile (angle bisection ``max(n_bisect - 4, 8)`` rounds), the exact
+    lasso, tissue-gated ``C*alpha+beta``, reconstruction through the tile's
+    own rows. The JAX signature's ``interpret`` has no counterpart here."""
+    _check(rgb_planar, planar=True)
+    kw = dict(luminosity_threshold=luminosity_threshold,
+              angular_percentile=angular_percentile, regularizer=regularizer,
+              augment_background=augment_background, n_bisect=n_bisect)
+    if rgb_planar.device.type == "cpu":
+        return macenko_augment_planar_ref(rgb_planar, alpha, beta, **kw)
+    return _aug_launch(rgb_planar, True, alpha, beta, **kw)
+
+
+def macenko_augment(rgb, alpha, beta, **kw):
+    """(B, H, W, 3) uint8 entry point; the kernel reads the interleaved
+    bytes directly (the estimate covers the whole tile)."""
+    _check(rgb, planar=False)
+    if rgb.device.type == "cpu":
+        return macenko_augment_ref(rgb, alpha, beta, **kw)
+    return _aug_launch(rgb, False, alpha, beta, **kw)
+
+
+def _augment_apply(x, scal, luminosity_threshold: float):
+    """Plain K7 on (B, 3, N) uint8 pixels: K1's OD and tissue mask, then
+    :func:`_augment_pixels` against the table's rows."""
+    od0, od1, od2, mask = _od_and_mask(x, luminosity_threshold)
+    return _augment_pixels(od0, od1, od2, mask, list(scal[:, 0:3].T),
+                           list(scal[:, 3:6].T), scal)
+
+
+def augment_with_matrix_planar_ref(rgb_planar, stain_matrix, alpha, beta,
+                                   luminosity_threshold: float = 0.8,
+                                   regularizer: float = 0.01,
+                                   augment_background: bool = False):
+    """Plain torch version of K7 over planar (B, 3, R, 128) uint8 tiles,
+    step for step ``_augment_kernel`` with ``estimate=False``."""
+    B, _, R, L = rgb_planar.shape
+    scal = _augment_scalars(stain_matrix, alpha, beta, regularizer,
+                            luminosity_threshold, augment_background, B,
+                            rgb_planar.device)
+    return _augment_apply(rgb_planar.reshape(B, 3, -1), scal,
+                          luminosity_threshold).reshape(B, 3, R, L)
+
+
+def augment_with_matrix_ref(rgb, stain_matrix, alpha, beta,
+                            luminosity_threshold: float = 0.8,
+                            regularizer: float = 0.01,
+                            augment_background: bool = False):
+    """Plain version of K7 over (B, H, W, 3) uint8 images of any size."""
+    B, H, W, _ = rgb.shape
+    scal = _augment_scalars(stain_matrix, alpha, beta, regularizer,
+                            luminosity_threshold, augment_background, B,
+                            rgb.device)
+    out = _augment_apply(rgb.reshape(B, H * W, 3).transpose(1, 2), scal,
+                         luminosity_threshold)
+    return out.transpose(1, 2).reshape(B, H, W, 3)
+
+
+def _augment_launch(x, planar: bool, stain_matrix, alpha, beta,
+                    luminosity_threshold: float, regularizer: float,
+                    augment_background: bool):
+    global augment_launches
+    from stainlib_tpu_torch.kernels import _build
+
+    B, dev = x.shape[0], x.device
+    if B > 65535:
+        raise ValueError(f"the augment-apply kernel takes at most 65535 "
+                         f"images per call, got {B}")
+    n_pix = _n_pix(x, planar)
+    scal = _augment_scalars(stain_matrix, alpha, beta, regularizer,
+                            luminosity_threshold, augment_background, B, dev)
+    out = torch.empty_like(x)
+    pix_stride, ch_stride = (1, n_pix) if planar else (3, 1)
+    _build.launch("augment_apply_launch", dev, x.data_ptr(), out.data_ptr(),
+                  scal.data_ptr(), _tables(dev).data_ptr(), B, n_pix,
+                  pix_stride, ch_stride)
+    augment_launches += 1
+    return out
+
+
+def augment_with_matrix_planar(rgb_planar, stain_matrix, alpha, beta,
+                               luminosity_threshold: float = 0.8,
+                               regularizer: float = 0.01,
+                               augment_background: bool = False):
+    """``StainAugmentor`` pop given per-tile (B, 2, 3) or shared (2, 3)
+    stain matrices, over planar (B, 3, R, 128) uint8 tiles
+    (``macenko_fused.py:886-929``): OD and tissue mask, the exact lasso
+    against the given rows, tissue-gated ``C*alpha+beta``, reconstruction
+    through the same rows. The JAX signature's ``interpret`` has no
+    counterpart here."""
+    _check(rgb_planar, planar=True)
+    args = (stain_matrix, alpha, beta)
+    kw = dict(luminosity_threshold=luminosity_threshold,
+              regularizer=regularizer, augment_background=augment_background)
+    if rgb_planar.device.type == "cpu":
+        return augment_with_matrix_planar_ref(rgb_planar, *args, **kw)
+    return _augment_launch(rgb_planar, True, *args, **kw)
+
+
+def augment_with_matrix(rgb, stain_matrix, alpha, beta,
+                        luminosity_threshold: float = 0.8,
+                        regularizer: float = 0.01,
+                        augment_background: bool = False):
+    """(B, H, W, 3) uint8 entry point, any H and W: the apply is per pixel,
+    so the kernel reads a whole interleaved field in one launch."""
+    _check(rgb, planar=False, lanes=False)
+    args = (stain_matrix, alpha, beta)
+    kw = dict(luminosity_threshold=luminosity_threshold,
+              regularizer=regularizer, augment_background=augment_background)
+    if rgb.device.type == "cpu":
+        return augment_with_matrix_ref(rgb, *args, **kw)
+    return _augment_launch(rgb, False, *args, **kw)

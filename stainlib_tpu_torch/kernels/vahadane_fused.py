@@ -17,6 +17,10 @@ Port of the JAX package's ``kernels/vahadane_fused.py``:
 * ``vahadane_normalize_planar_2k`` (``:407-421``): that dictionary kernel
   then the fixed-matrix apply kernel ``fused_stain.fused_normalize_planar``,
   the JAX package's reference for the single kernel.
+* ``vahadane_augment_planar`` (``:432-465``): ``StainAugmentor('vahadane')``
+  fit + pop, the dictionary kernel, the Ruifrok-Johnston prior where a
+  tile's mask was empty, then the augment-apply kernel
+  ``macenko_fused.augment_with_matrix_planar`` (K7).
 
 Kernel source note (``csrc/vahadane_fused.cu``):
 
@@ -55,6 +59,8 @@ from stainlib_tpu_torch.kernels.fused_stain import (
 )
 from stainlib_tpu_torch.kernels.macenko_fused import (
     _macenko_rows,
+    augment_with_matrix_planar,
+    augment_with_matrix_planar_ref,
     _od_and_mask,
     _sample_args,
     _sample_index,
@@ -62,6 +68,7 @@ from stainlib_tpu_torch.kernels.macenko_fused import (
     _target_scalars,
     _y_threshold,
 )
+from stainlib_tpu_torch.ops.dictlearn import _HE_INIT
 
 # Kernel launches since import (or since a caller reset them).
 launches = 0  # vahadane_normalize kernel
@@ -316,3 +323,56 @@ def vahadane_normalize_planar_2k(rgb_planar, stain_matrix_tgt, max_c_target,
         rgb_planar, regularizer=regularizer_fit, num_iters=num_iters)
     return fused_normalize_planar(rgb_planar, M_src, stain_matrix_tgt,
                                   max_c_target, regularizer=regularizer)
+
+
+def _prior_where_nan(M):
+    """Empty-mask tiles' NaN rows -> the Ruifrok-Johnston prior (their
+    pixels are background and pass the tissue gate unperturbed)."""
+    prior = torch.as_tensor(_HE_INIT, device=M.device).expand(M.shape)
+    return torch.where(torch.isnan(M), prior, M)
+
+
+def vahadane_augment_planar(rgb_planar, alpha, beta,
+                            luminosity_threshold: float = 0.8,
+                            regularizer_fit: float = 0.1,
+                            regularizer: float = 0.01, num_iters: int = 12,
+                            augment_background: bool = False):
+    """Fused Vahadane ``StainAugmentor`` fit + pop over planar
+    (B, 3, R, 128) uint8 tiles (``vahadane_fused.py:432-458``): the
+    dictionary kernel (K8) for each tile's stain matrix, the prior where
+    it is NaN, then the augment-apply kernel (K7). ``alpha``/``beta``:
+    (B, 2) per-image per-stain draws. The JAX signature's ``interpret``
+    has no counterpart here."""
+    M = _prior_where_nan(vahadane_stain_matrix_planar(
+        rgb_planar, regularizer=regularizer_fit, num_iters=num_iters,
+        luminosity_threshold=luminosity_threshold))
+    return augment_with_matrix_planar(
+        rgb_planar, M, alpha, beta,
+        luminosity_threshold=luminosity_threshold, regularizer=regularizer,
+        augment_background=augment_background)
+
+
+def vahadane_augment_planar_ref(rgb_planar, alpha, beta,
+                                luminosity_threshold: float = 0.8,
+                                regularizer_fit: float = 0.1,
+                                regularizer: float = 0.01,
+                                num_iters: int = 12,
+                                augment_background: bool = False):
+    """Plain version of :func:`vahadane_augment_planar`: the plain K8, then
+    the plain K7, on any device."""
+    M = _prior_where_nan(vahadane_stain_matrix_planar_ref(
+        rgb_planar, regularizer=regularizer_fit, num_iters=num_iters,
+        luminosity_threshold=luminosity_threshold))
+    return augment_with_matrix_planar_ref(
+        rgb_planar, M, alpha, beta,
+        luminosity_threshold=luminosity_threshold, regularizer=regularizer,
+        augment_background=augment_background)
+
+
+def vahadane_augment(rgb, alpha, beta, **kw):
+    """(B, H, W, 3) uint8 entry point (lane-aligned tiles)."""
+    _check(rgb, planar=False)
+    _, H, W, _ = rgb.shape
+    out = vahadane_augment_planar(to_planar(rgb).contiguous(), alpha, beta,
+                                  **kw)
+    return from_planar(out, H, W)

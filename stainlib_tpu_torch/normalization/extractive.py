@@ -84,8 +84,7 @@ def transform_with_matrix(rgb, stain_matrix_src, max_c_src,
     max_c_src = torch.as_tensor(max_c_src, device=C.device).to(torch.float32)
     scale = params.max_c_target / torch.clamp_min(max_c_src, 1e-8)
     C = C * scale[..., None, None, :]
-    od = torch.einsum("...hwk,...kc->...hwc", C, params.stain_matrix_target)
-    return to_uint8(255.0 * torch.exp(-od))
+    return reconstruct(C, params.stain_matrix_target[..., None, None, :, :])
 
 
 def estimate_source(rgb, method: str = "macenko", regularizer: float = 0.01,
@@ -164,6 +163,11 @@ def tiled_est_stride(h: int, w: int, floor: int = 256 * 256) -> int:
 
 
 def reconstruct(concentrations, stain_matrix):
-    """``255 * exp(-C @ M)`` -> uint8 (``normalizer.py:49-50``)."""
-    od = torch.einsum("...k,...kc->...c", concentrations, stain_matrix)
+    """``255 * exp(-C @ M)`` -> uint8 (``normalizer.py:49-50``), shared with
+    the stain augmenter (``augmenter.py:445-448``). ``C @ M`` is written as
+    ``C0 * M[0] + C1 * M[1]``, each product and the sum rounded in float32,
+    so the card and the CPU round it the same (a matrix product does not)."""
+    C = torch.as_tensor(concentrations)
+    M = torch.as_tensor(stain_matrix, device=C.device).to(C.dtype)
+    od = C[..., 0:1] * M[..., 0, :] + C[..., 1:2] * M[..., 1, :]
     return to_uint8(255.0 * torch.exp(-od))

@@ -1,16 +1,20 @@
 """Color-space conversions as batched torch functions.
 
-Port of the JAX package's ``ops/colorspace.py`` (the sRGB <-> CIELAB, OD and
-uint8-edge parts), which replaces the reference's OpenCV
+Port of the JAX package's ``ops/colorspace.py`` (the sRGB <-> CIELAB, OD,
+HED, grayscale and uint8-edge parts), which replaces the reference's OpenCV
 ``cv.cvtColor(RGB2LAB/LAB2RGB)`` calls (``stainlib/utils/
-stain_utils.py:41,62,66,152,172``) and ``convert_RGB_to_OD``
-(``stain_utils.py:101-112``) with OpenCV's constants.
+stain_utils.py:41,62,66,152,172``), ``convert_RGB_to_OD`` /
+``convert_OD_to_RGB`` (``stain_utils.py:101-124``) and scikit-image's
+``rgb2hed`` / ``hed2rgb`` / ``rgb2gray`` (``stainlib/augmentation/
+augmenter.py:295,319,397``) with the same constants.
 
 Images are float32 tensors with a trailing channel axis and RGB in
 ``[0, 255]``; every function broadcasts over leading axes and runs on the
-device of its input. The 3x3 contractions run in float32 with TF32 off
-(set once at package import), the counterpart of the JAX module's
-``Precision.HIGHEST`` (``colorspace.py:31-37``).
+device of its input. The 3x3 (and 3x1) contractions, the JAX module's
+``_mm`` at ``Precision.HIGHEST`` (``colorspace.py:31-37``), are written as
+float32 multiplies and adds in a fixed order (:func:`_contract`), not as
+``@``: a matrix product rounds differently on the card than on the CPU,
+separate elementwise multiplies and adds round the same on both.
 """
 
 from __future__ import annotations
@@ -35,6 +39,31 @@ _WHITE = np.array([0.950456, 1.0, 1.088754], dtype=np.float32)
 
 _LAB_DELTA = 0.008856  # (6/29)^3 threshold of the CIE f() function
 _LAB_KAPPA = 903.3  # OpenCV's low-Y L* slope
+
+# Ruifrok & Johnston's normalized stain OD vectors (rows: Haematoxylin,
+# Eosin, DAB), skimage's ``rgb_from_hed``: row-normalized in float64, then
+# inverted, as the JAX module does (``colorspace.py:164-174``).
+_RGB_FROM_HED = np.array([[0.65, 0.70, 0.29],
+                          [0.07, 0.99, 0.11],
+                          [0.27, 0.57, 0.78]], dtype=np.float64)
+_RGB_FROM_HED /= np.linalg.norm(_RGB_FROM_HED, axis=1, keepdims=True)
+_HED_FROM_RGB = np.linalg.inv(_RGB_FROM_HED)
+_LOG_ADJUST = float(np.log(1e-6))  # skimage's log-domain scaling constant
+
+# skimage's ``rgb2gray`` luma weights.
+_GRAY_WEIGHTS = np.array([0.2125, 0.7154, 0.0721], dtype=np.float32)
+
+
+def _contract(x, m):
+    """``x @ m`` for ``x`` (..., 3) and a constant (3, K) matrix ``m``:
+    output k is ``x0*m[0,k] + x1*m[1,k] + x2*m[2,k]``, each product and sum
+    rounded in float32 from left to right, with ``m`` rounded once to
+    float32. (3,) ``m`` gives (...,)."""
+    m = np.asarray(m, np.float32)
+    cols = m[:, None] if m.ndim == 1 else m
+    out = [x[..., 0] * float(cols[0, k]) + x[..., 1] * float(cols[1, k])
+           + x[..., 2] * float(cols[2, k]) for k in range(cols.shape[1])]
+    return out[0] if m.ndim == 1 else torch.stack(out, dim=-1)
 
 
 def _f32(x, device):
@@ -73,7 +102,7 @@ def rgb_to_lab(rgb):
     ``COLOR_RGB2LAB`` (``stain_utils.py:41``) with its packing undone."""
     c = fdiv(torch.as_tensor(rgb).to(torch.float32), 255.0)
     lin = _srgb_gamma_expand(c)
-    xyz = lin @ _f32(_RGB2XYZ.T, c.device)
+    xyz = _contract(lin, _RGB2XYZ.T)
     xyz = xyz / _f32(_WHITE, c.device)
     fx, fy, fz = xyz[..., 0], xyz[..., 1], xyz[..., 2]
     L = torch.where(fy > _LAB_DELTA, 116.0 * _cbrt(fy) - 16.0,
@@ -97,7 +126,7 @@ def lab_to_rgb(lab):
     x = _lab_f_inv(fx)
     z = _lab_f_inv(fz)
     xyz = torch.stack([x, y, z], dim=-1) * _f32(_WHITE, lab.device)
-    lin = xyz @ _f32(_XYZ2RGB.T, lab.device)
+    lin = _contract(xyz, _XYZ2RGB.T)
     srgb = _srgb_gamma_compress(lin)
     return torch.clamp(srgb, 0.0, 1.0) * 255.0
 
@@ -107,7 +136,7 @@ def lab_luminance(rgb):
     statistic (``stain_utils.py:41-43``: uint8 L / 255 == L / 100)."""
     c = fdiv(torch.as_tensor(rgb).to(torch.float32), 255.0)
     lin = _srgb_gamma_expand(c)
-    Y = lin @ _f32(_RGB2XYZ.T[:, 1], c.device)
+    Y = _contract(lin, _RGB2XYZ.T[:, 1])
     return torch.where(Y > _LAB_DELTA, 116.0 * _cbrt(Y) - 16.0,
                        _LAB_KAPPA * Y)
 
@@ -117,6 +146,39 @@ def rgb_to_od(rgb):
     (``convert_RGB_to_OD``, ``stain_utils.py:101-112``)."""
     I = torch.clamp_min(torch.as_tensor(rgb).to(torch.float32), 1.0)
     return torch.clamp_min(-torch.log(fdiv(I, 255.0)), 1e-6)
+
+
+def od_to_rgb(od):
+    """Optical density -> RGB float in (0, 255], ``255 * exp(-max(OD,
+    1e-6))`` (``convert_OD_to_RGB``, ``stain_utils.py:114-124``, without the
+    uint8 cast)."""
+    od = torch.clamp_min(torch.as_tensor(od).to(torch.float32), 1e-6)
+    return 255.0 * torch.exp(-od)
+
+
+def rgb_to_hed(rgb):
+    """RGB [0,255] -> HED stain concentrations, skimage ``rgb2hed``
+    (``augmenter.py:295``): ``(log(max(rgb/255, 1e-6)) / log(1e-6)) @
+    hed_from_rgb``."""
+    c = torch.clamp_min(fdiv(torch.as_tensor(rgb).to(torch.float32), 255.0),
+                        1e-6)
+    return _contract(fdiv(torch.log(c), _LOG_ADJUST), _HED_FROM_RGB)
+
+
+def hed_to_rgb(hed):
+    """HED stain concentrations -> RGB float [0,255], skimage ``hed2rgb``
+    (``augmenter.py:319``): ``clip(exp(-(hed * -log(1e-6)) @
+    rgb_from_hed), 0, 1) * 255``."""
+    hed = torch.as_tensor(hed).to(torch.float32)
+    log_rgb = -_contract(hed * (-_LOG_ADJUST), _RGB_FROM_HED)
+    return torch.clamp(torch.exp(log_rgb), 0.0, 1.0) * 255.0
+
+
+def rgb_to_gray(rgb):
+    """RGB [0,255] -> luma [0,1] with skimage's ``rgb2gray`` weights
+    (``augmenter.py:397``)."""
+    return _contract(fdiv(torch.as_tensor(rgb).to(torch.float32), 255.0),
+                     _GRAY_WEIGHTS)
 
 
 def to_uint8(x):
