@@ -32,7 +32,13 @@ It builds the hand-written CUDA kernels from the sources in the checkout,
 counts each kernel's launches over its path, holds every kernel against
 its plain PyTorch version and against the functional path, checks that two
 runs give identical bytes, and times each kernel against its plain version
-with CUDA events.
+with CUDA events. The thread-block-cluster kernels K2 and K4 print their
+cluster plan (``scripts/torch_cluster_sweep.py`` times them at every
+cluster size). Where ``.runs/parent`` holds a ``git archive`` of the
+parent commit, ``scripts/torch_time_trees.py`` times both trees' public
+entry points in turns (phase 39) and ``scripts/torch_compare_trees.py``
+compares all ten kernels' outputs (phase 40); without it those two phases
+are skipped and say so.
 
 Phases print one line each. Before the last line it prints the card's name
 and power limit (``nvidia-smi``) and a JSON object describing each kernel:
@@ -446,6 +452,59 @@ def augment_phases(dev, smi, batch, batch_np, planar) -> list:
     ]
 
 
+def plan_text(kernel: str, side_or_n: int, fit_stride: int | None = None):
+    """The cluster plan of K2 (a ``side``^2 tile at ``fit_stride``) or K4
+    (an ``n``-pixel tile), as a phrase."""
+    from stainlib_tpu_torch.kernels import macenko_fused as mf
+
+    if fit_stride is None:
+        n, shape = side_or_n, f"{side_or_n} px"
+    else:
+        nblk, blk, _ = mf._sample_args(side_or_n * side_or_n, fit_stride)
+        n, shape = nblk * blk, f"{side_or_n}^2 fs={fit_stride}"
+    p = mf.cluster_plan(n, kernel)
+    where = (f"{p.smem} B of dynamic shared memory per block" if p.smem
+             else "staged in device memory")
+    return (f"{kernel} plan at {shape} ({n} sample px): G={p.g} blocks of "
+            f"512 threads per tile, {p.slice} px staged per block, {where}")
+
+
+def parent_phases() -> None:
+    """Phases 39-40, where ``.runs/parent`` holds a ``git archive`` of the
+    parent commit: ``scripts/torch_time_trees.py`` times both trees' public
+    entry points (K2, K4, the functional paths, the augmenters) in turns,
+    and ``scripts/torch_compare_trees.py`` compares all ten kernels'
+    outputs."""
+    root = Path(__file__).resolve().parent
+    parent = root / ".runs" / "parent"
+    if not (parent / "stainlib_tpu_torch").is_dir():
+        log(39, f"no parent tree at .runs/{parent.name}: the trees are "
+                f"neither timed nor compared")
+        return
+
+    def script(name):
+        out = subprocess.run(
+            [sys.executable, str(root / "scripts" / name), str(parent)],
+            capture_output=True, text=True, timeout=600, check=True)
+        return out.stdout.strip().splitlines()
+
+    # 39. Both trees' entry points in turns (parent, this, this, parent).
+    lines = script("torch_time_trees.py")
+    for ln in lines[:-2]:
+        log(39, f"{ln.replace('other', 'parent')} (median of {REPS} "
+                f"CUDA-event runs per process; card '{lines[-2]}')")
+
+    # 40. Every kernel's output in both trees, on the same inputs.
+    summary = json.loads(script("torch_compare_trees.py")[-1])
+    for name, k in summary["kernels"].items():
+        log(40, f"{name}: {k['differ_between_trees']} of {k['values']} "
+                f"values differ from the parent's (max {k['max_abs_diff']}); "
+                f"vs plain: this tree {k['this_vs_plain_differ']}, parent "
+                f"{k['other_vs_plain_differ']}")
+        assert k["this_vs_plain_differ"] == 0, name
+        assert k["differ_between_trees"] == 0, name
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to PyTorch", file=sys.stderr)
@@ -686,6 +745,12 @@ def run(dev) -> int:
                 f"(plain, kernel, kernel, plain): kernel {ka:.3f}/{kb:.3f} "
                 f"ms = {B / min(ka, kb) * 1e3:.0f} tiles/s; plain "
                 f"{pa:.3f}/{pb:.3f} ms; card '{smi}'")
+    d2 = device_ms(lambda: vf.vahadane_normalize(batch, M, mc, **VFAST),
+                   "vahadane_normalize_kernel")
+    log(18, f"K2 fs=2 it=8 nb=10 B={B} {SIDE}^2, the kernel alone "
+            f"(torch.profiler device time per call, {REPS} calls): "
+            f"{fmt_ms(d2)}; {plan_text('K2', SIDE, 2)}; "
+            f"{plan_text('K2', SIDE_LARGE, 2)}")
     kernels += [
         dict(name="vahadane_normalize_planar", route="cuda",
              source="stainlib_tpu_torch/kernels/csrc/vahadane_fused.cu",
@@ -812,6 +877,12 @@ def run(dev) -> int:
                    "matrix_apply_kernel")
     log(23, f"K3 {FIELDS[-1]}^2 field, the kernel alone (torch.profiler "
             f"device time per call, {REPS} calls): {fmt_ms(d3)}")
+    for label, pl in ((f"one {SIDE}^2 subsample", sub_planar),
+                      (f"B={B} {SIDE}^2", planar)):
+        d4 = device_ms(lambda: mf.macenko_fit_planar(pl), "macenko_fit_kernel")
+        log(23, f"K4 {label}, the kernel alone (torch.profiler device time "
+                f"per call, {REPS} calls): {fmt_ms(d4)}; "
+                f"{plan_text('K4', pl.shape[2] * 128)}")
     kernels += [
         dict(name="normalize_with_matrix_planar", route="cuda",
              source="stainlib_tpu_torch/kernels/csrc/macenko_fused.cu",
@@ -846,6 +917,15 @@ def run(dev) -> int:
             f"{k10_launches}; kernel {ka:.3f}/{kb:.3f} ms, plain "
             f"{pa:.3f}/{pb:.3f} ms (plain, kernel, kernel, plain, median "
             f"of {REPS}); card '{smi}'")
+    st10 = torch.stack(mf._masked_moments(*mf._od_and_mask(planar, 0.8)),
+                       dim=1)  # the kernel's moments, by the plain version
+    d10 = device_ms(lambda: mf.eigenplane(planar), "eigenplane_kernel")
+    glue = time_ms(lambda: mf._eigenplane_from_moments(st10))
+    log(24, f"K10 B={B} {SIDE}^2 split: the moments kernel alone "
+            f"(torch.profiler device time per call, {REPS} calls) "
+            f"{fmt_ms(d10)}; the torch glue alone (moments -> eigenplane, "
+            f"median of {REPS} CUDA-event runs) {glue:.3f} ms; no path of "
+            f"the port calls eigenplane")
     kernels.append(dict(
         name="eigenplane", route="cuda",
         source="stainlib_tpu_torch/kernels/csrc/macenko_fused.cu",
@@ -948,6 +1028,9 @@ def run(dev) -> int:
             f"{share37:.3e}, share>1={over37:.3e}; functional Reinhard: "
             f"max={rf_card_cpu[0]} u8, share differing="
             f"{rf_card_cpu[1]:.3e}, share>1={rf_card_cpu[2]:.3e} (phase 27)")
+
+    # ---- This tree against the parent's, where it is unpacked beside it
+    parent_phases()
 
     # Each kernel's bound at the shapes of its timed call, with the tissue
     # share of these inputs (the masked passes count tissue pixels only).

@@ -8,8 +8,10 @@ own process on the same inputs (synthetic H&E tiles from
 every kernel's output, then prints one line per kernel: how many output
 values differ between the two trees and by how much, and, in each tree,
 whether the kernel equals its plain PyTorch version on the card. The
-kernels: K1, K2, K8, K9 and K4, K10 at 256 tiles of 256x256, K3 on one
-2048x2048 field. ``OTHER_TREE`` is a checkout of another commit, e.g.
+kernels: all ten, K1, K2, K4, K5, K6, K7, K8, K9 and K10 at 256 tiles of
+256x256, K3 and K7 on one 2048x2048 field, K4 also on that field's 256x256
+grid subsample (the tiled route's shape). ``OTHER_TREE`` is a checkout of
+another commit, e.g.
 ``git archive <commit> | tar -x -C .runs/parent``. Exits non-zero without
 a CUDA device. The last line is a JSON object with the same figures.
 """
@@ -35,6 +37,10 @@ VFAST = dict(fit_stride=2, num_iters=8, n_bisect=10)
 # magnitude of an H&E fit; fixed so both trees see the same numbers.
 M_TGT = [[0.5626, 0.7201, 0.4062], [0.2159, 0.8012, 0.5581]]
 MC_TGT = [1.9, 1.3]
+# Reinhard's LAB target means and standard deviations, and the augment
+# draws (alpha, beta per stain): fixed, of the size a fit and a draw give.
+LAB_MEANS, LAB_STDS = [59.77, 22.49, -8.83], [24.57, 13.48, 6.01]
+ALPHA, BETA = [1.1, 0.92], [0.05, -0.04]
 
 
 def _synth():
@@ -50,6 +56,7 @@ def dump(tree: Path, out: Path) -> None:
     sys.path.insert(0, str(tree))
     from stainlib_tpu_torch.kernels import fused_stain as fs
     from stainlib_tpu_torch.kernels import macenko_fused as mf
+    from stainlib_tpu_torch.kernels import reinhard_fused as rf
     from stainlib_tpu_torch.kernels import vahadane_fused as vf
 
     assert Path(mf.__file__).resolve().is_relative_to(tree.resolve()), (
@@ -60,9 +67,17 @@ def dump(tree: Path, out: Path) -> None:
     planar = fs.to_planar(batch).contiguous()
     field = torch.from_numpy(
         synth.he_batch(1, FIELD, FIELD, seed=SEED + 1)).to(dev)
+    sub = fs.to_planar(field[:, ::8, ::8].contiguous()).contiguous()
     M = torch.tensor(M_TGT, device=dev)
     mc = torch.tensor(MC_TGT, device=dev)
+    means = torch.tensor(LAB_MEANS, device=dev)
+    stds = torch.tensor(LAB_STDS, device=dev)
+    alpha = torch.tensor(ALPHA, device=dev).expand(B, 2)
+    beta = torch.tensor(BETA, device=dev).expand(B, 2)
     m8_plain = vf.vahadane_stain_matrix_planar_ref(planar)
+
+    def fit(fn, x):
+        return torch.cat([y.reshape(x.shape[0], -1) for y in fn(x)], 1)
     cases = {
         "K1": (lambda: mf.macenko_normalize(batch, M, mc, **FAST),
                lambda: mf.macenko_normalize_ref(batch, M, mc, **FAST)),
@@ -76,10 +91,21 @@ def dump(tree: Path, out: Path) -> None:
         "K3": (lambda: mf.normalize_with_matrix(field, M, mc * 1.1, M, mc),
                lambda: mf.normalize_with_matrix_ref(field, M, mc * 1.1, M,
                                                     mc)),
-        "K4": (lambda: torch.cat([x.reshape(B, -1) for x in
-                                  mf.macenko_fit_planar(planar)], 1),
-               lambda: torch.cat([x.reshape(B, -1) for x in
-                                  mf.macenko_fit_planar_ref(planar)], 1)),
+        "K4": (lambda: fit(mf.macenko_fit_planar, planar),
+               lambda: fit(mf.macenko_fit_planar_ref, planar)),
+        "K4 subsample": (lambda: fit(mf.macenko_fit_planar, sub),
+                         lambda: fit(mf.macenko_fit_planar_ref, sub)),
+        "K5": (lambda: rf.reinhard_normalize(batch, means, stds),
+               lambda: rf.reinhard_normalize_ref(batch, means, stds)),
+        "K6": (lambda: mf.macenko_augment(batch, alpha, beta),
+               lambda: mf.macenko_augment_ref(batch, alpha, beta)),
+        "K7": (lambda: mf.augment_with_matrix_planar(planar, M, alpha, beta),
+               lambda: mf.augment_with_matrix_planar_ref(planar, M, alpha,
+                                                         beta)),
+        "K7 field": (
+            lambda: mf.augment_with_matrix(field, M, alpha[:1], beta[:1]),
+            lambda: mf.augment_with_matrix_ref(field, M, alpha[:1],
+                                               beta[:1])),
         "K10": (lambda: mf.eigenplane(planar),
                 lambda: mf.eigenplane_ref(planar)),
     }

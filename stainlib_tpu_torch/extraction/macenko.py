@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from stainlib_tpu_torch.ops.colorspace import rgb_to_od
+from stainlib_tpu_torch.ops.fdiv import f64, sum3
 from stainlib_tpu_torch.ops.linalg3 import eigh3x3
 from stainlib_tpu_torch.ops.percentile import masked_percentile
 from stainlib_tpu_torch.ops.tissue import tissue_mask
@@ -58,23 +59,23 @@ def stain_matrix_macenko_from_od(od, m, angular_percentile: float = 99.0):
     V2 = V2 * torch.where(V2[..., 0:1, :] < 0.0, -1.0, 1.0)
 
     That = torch.einsum("...nc,...ck->...nk", od, V2)
-    phi = torch.atan2(That[..., 1], That[..., 0])
+    phi = f64(torch.atan2, That[..., 1], That[..., 0])
     min_phi, max_phi = masked_percentile(
         phi, m > 0.0,
         torch.tensor([100.0 - angular_percentile, angular_percentile],
                      dtype=torch.float32, device=od.device))
 
-    v1 = torch.einsum("...ck,...k->...c", V2,
-                      torch.stack([torch.cos(min_phi), torch.sin(min_phi)],
-                                  dim=-1))
-    v2 = torch.einsum("...ck,...k->...c", V2,
-                      torch.stack([torch.cos(max_phi), torch.sin(max_phi)],
-                                  dim=-1))
+    # V2 @ (cos, sin), in float64 transcendentals and a fixed order, so the
+    # card rounds as the CPU does.
+    v1 = (V2[..., 0] * f64(torch.cos, min_phi)[..., None]
+          + V2[..., 1] * f64(torch.sin, min_phi)[..., None])
+    v2 = (V2[..., 0] * f64(torch.cos, max_phi)[..., None]
+          + V2[..., 1] * f64(torch.sin, max_phi)[..., None])
 
     # H first: the row with the larger red OD (macenko_stain_extractor.py:40-43).
     first = v1[..., 0] > v2[..., 0]
     h = torch.where(first[..., None], v1, v2)
     e = torch.where(first[..., None], v2, v1)
     HE = torch.stack([h, e], dim=-2)
-    HE = HE / torch.sqrt((HE * HE).sum(-1, keepdim=True))
+    HE = HE / torch.sqrt(sum3(HE * HE))[..., None]
     return torch.where((n > 0.0)[..., None, None], HE, torch.nan)

@@ -52,7 +52,9 @@ _ARGTYPES = {
         _i32, _i32, _i32,  # nblk, blk, stp
         _f32, _f32, _f32, _f32, _f32, _f32,  # y_thr, lam_fit, lam, q_lo,
         #                                      q_hi, q_conc
-        _i32, _i32, _i32, _ptr],  # num_iters, it_angle, it_conc, stream
+        _i32, _i32, _i32,  # num_iters, it_angle, it_conc
+        _i32, _i32, _i32, _ptr,  # G, slice, smem bytes, scratch
+        _ptr],  # stream
     "vahadane_dict_launch": [
         _i32, _ptr, _ptr, _ptr,  # device, in, out, luts
         _i32, _i32, _i32, _i32,  # batch, n_pix, pix/ch stride
@@ -67,7 +69,9 @@ _ARGTYPES = {
         _i32, _ptr, _ptr, _ptr,  # device, in, out, luts
         _i32, _i32, _i32, _i32,  # batch, n_pix, pix/ch stride
         _f32, _f32, _f32, _f32, _f32,  # y_thr, lam, q_lo, q_hi, q_conc
-        _i32, _i32, _ptr],  # it_angle, it_conc, stream
+        _i32, _i32,  # it_angle, it_conc
+        _i32, _i32, _i32, _ptr,  # G, slice, smem bytes, scratch
+        _ptr],  # stream
     "eigenplane_launch": [
         _i32, _ptr, _ptr, _ptr,  # device, in, out, luts
         _i32, _i32, _i32, _i32,  # batch, n_pix, pix/ch stride

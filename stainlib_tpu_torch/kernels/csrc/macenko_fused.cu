@@ -28,8 +28,18 @@
 //
 // macenko_fit_kernel replaces macenko_fit_planar / _fit_kernel
 // (:628-679, :688-736): phases 1-4 of K1 on the whole tile, writing the
-// stain rows and the two maxC values (8 floats) per tile. Bound and design
-// as K1, without the apply pass.
+// stain rows and the two maxC values (8 floats) per tile. The tiled route
+// calls it on one ~256^2 subsample per field, so the batch is 1 and one
+// block per tile would use one SM of 132. Design: one
+// thread-block cluster of G = 16 blocks per tile (macenko_fused.
+// cluster_plan), each owning 1/16 of the tile; the stain::Staged phases
+// (stain_common.cuh) stage each pixel's bytes and mask bit, its
+// pseudo-angle, then its two concentrations, in shared memory, so after
+// one pass over device memory every bisection round is a shared-memory
+// compare (three rounds per reduction) and the time is the chain of 14
+// dependent cluster reductions. A tile over 293K pixels (more than 16
+// blocks' shared memory holds) is staged in a device-memory scratch buffer
+// instead, by the same code. Rank 0 writes the 8 floats.
 //
 // eigenplane_kernel replaces eigenplane / _stats_kernel (:237-248,
 // :498-532): phase 1 alone, the ten moments (count, 3 sums, 6 second
@@ -82,6 +92,8 @@ struct Args {
   int nblk, blk, stp;
   float y_thr, lam, q_lo, q_hi, q_conc;
   int it_angle, it_conc;
+  int slice;      // K4: sample pixels staged per block
+  float* scratch;  // K4: the blocks' stages in device memory, or nullptr
 };
 
 struct Shared {
@@ -121,18 +133,41 @@ __global__ void __launch_bounds__(kThreads, 2) macenko_apply_kernel(Args a) {
                                scal[7]);
 }
 
+// K4: one cluster of G blocks per tile (blockIdx.x / G), the bisection
+// operands and the sample's bytes staged in `stage` (dynamic shared memory,
+// 12 * a.slice bytes) or, with a.scratch, in the block's part of it.
+struct ClusterShared {
+  double dbuf[10 * kWarps];
+  float lut[4][256];
+  float fbuf[2 * kWarps];
+  int ibuf[14 * kWarps];
+  float res[8];
+  stain::ClusterSlots cs;
+};
+
 __global__ void __launch_bounds__(kThreads, 2) macenko_fit_kernel(Args a) {
-  __shared__ Shared sh;
-  const stain::Tile t = load_tile(a, sh);
+  __shared__ ClusterShared sh;
+  extern __shared__ __align__(16) float stage[];
+  for (int i = threadIdx.x; i < 4 * 256; i += kThreads)
+    sh.lut[i >> 8][i & 255] = a.luts[i];
+  __syncthreads();
+  const unsigned G = cooperative_groups::this_cluster().num_blocks();
+  const int tile = blockIdx.x / G;
+  const stain::Tile t{a.in + (size_t)tile * 3 * a.n_pix, sh.lut, a.n_pix,
+                      a.pix_stride, a.ch_stride, a.nblk, a.blk, a.stp,
+                      a.y_thr};
+  float* vals = a.scratch ? a.scratch + (size_t)blockIdx.x * 3 * a.slice
+                          : stage;
+  stain::Staged s = stain::make_staged(t, vals, a.slice, sh.fbuf, sh.ibuf,
+                                       sh.dbuf, sh.res, &sh.cs);
   float he[6];
-  stain::macenko_rows<kThreads>(t, a.q_lo, a.q_hi, a.it_angle, sh.fbuf,
-                                sh.ibuf, sh.dbuf, sh.v_sh, he);
+  stain::staged_macenko_rows<kThreads>(s, a.q_lo, a.q_hi, a.it_angle, he);
   const stain::Gram g = stain::gram(he);
   float maxc[2];
-  stain::conc_maxc<kThreads>(t, he, g, a.lam, a.q_conc, a.it_conc, sh.fbuf,
-                             sh.ibuf, maxc);
-  if (threadIdx.x == 0) {
-    float* out = static_cast<float*>(a.out) + blockIdx.x * 8;
+  stain::staged_conc_maxc<kThreads>(s, he, g, a.lam, a.q_conc, a.it_conc,
+                                    maxc);
+  if (s.rank == 0 && threadIdx.x == 0) {
+    float* out = static_cast<float*>(a.out) + tile * 8;
     for (int i = 0; i < 6; ++i) out[i] = he[i];
     out[6] = maxc[0];
     out[7] = maxc[1];
@@ -232,7 +267,8 @@ __global__ void __launch_bounds__(kApplyThreads) augment_apply_kernel(
 Args make_args(const void* in, void* out, const void* scal, const void* luts,
                int n_pix, int pix_stride, int ch_stride, int nblk, int blk,
                int stp, float y_thr, float lam, float q_lo, float q_hi,
-               float q_conc, int it_angle, int it_conc) {
+               float q_conc, int it_angle, int it_conc, int slice = 0,
+               float* scratch = nullptr) {
   Args a;
   a.in = static_cast<const uint8_t*>(in);
   a.out = out;
@@ -251,6 +287,8 @@ Args make_args(const void* in, void* out, const void* scal, const void* luts,
   a.q_conc = q_conc;
   a.it_angle = it_angle;
   a.it_conc = it_conc;
+  a.slice = slice;
+  a.scratch = scratch;
   return a;
 }
 
@@ -271,20 +309,25 @@ extern "C" cudaError_t macenko_normalize_launch(
   return cudaGetLastError();
 }
 
+// K4 over `batch` tiles: clusters of G blocks, each staging `slice` pixels
+// (12 bytes each; macenko_fused.cluster_plan) in `smem` bytes of dynamic
+// shared memory or, where `scratch` is given (smem 0), in
+// batch * G * 12 * slice bytes of device memory.
 extern "C" cudaError_t macenko_fit_launch(
     int device, const void* in, void* out, const void* luts, int batch,
     int n_pix, int pix_stride, int ch_stride, float y_thr, float lam,
-    float q_lo, float q_hi, float q_conc, int it_angle, int it_conc,
-    void* stream) {
+    float q_lo, float q_hi, float q_conc, int it_angle, int it_conc, int G,
+    int slice, int smem, void* scratch, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (batch == 0) return cudaSuccess;
   // The fit covers the whole tile: a one-block sample.
   const Args a = make_args(in, out, nullptr, luts, n_pix, pix_stride,
                            ch_stride, 1, n_pix, n_pix, y_thr, lam, q_lo, q_hi,
-                           q_conc, it_angle, it_conc);
-  macenko_fit_kernel<<<batch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return cudaGetLastError();
+                           q_conc, it_angle, it_conc, slice,
+                           static_cast<float*>(scratch));
+  return stain::launch_cluster<macenko_fit_kernel>(
+      a, device, batch, G, kThreads, smem, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" cudaError_t eigenplane_launch(int device, const void* in, void* out,

@@ -1,14 +1,15 @@
-// Fused Vahadane kernels, one thread block per tile (sm_90a).
+// Fused Vahadane kernels (sm_90a): fit + transform (K2) as one thread-block
+// cluster per tile, the dictionary (K8) as one thread block per tile.
 //
 // vahadane_normalize_kernel replaces the Pallas TPU kernel
 // vahadane_normalize_planar / _vahadane_full_kernel (the JAX package's
 // kernels/vahadane_fused.py:111-215, :342-404). Per tile:
 //   1. the Macenko warm start on the estimation sample (K1's phases 1-3,
-//      stain::macenko_rows, angular percentiles 1 and 99);
+//      angular percentiles 1 and 99);
 //   2. num_iters BCD alternations on the sample (_bcd_iteration :218-278):
 //      each one pass of lasso codes at the fit regularizer and nine masked
-//      sums (accumulated in double, rounded once) in one block reduction,
-//      then the two row sweeps;
+//      sums (accumulated in double, rounded once) in one reduction, then
+//      the two row sweeps;
 //   3. H-first swap on the unnormalized rows, row normalization;
 //   4. the apply lasso and the two 99th-percentile concentrations over the
 //      sample (unmasked);
@@ -16,16 +17,33 @@
 // A tile with an empty mask keeps its BCD start and reconstructs with zero
 // concentrations: white stays white, as in the TPU kernel.
 //
+// Bound: work per pixel, not bytes. At fs=2 it=8 nb=10 a tile takes 31
+// passes over its sample; 22 of them (the bisection rounds and successor
+// recoveries) only compare one per-pixel value (pseudo-angle,
+// concentration) with a midpoint, so that value is worth keeping. Design:
+// one cluster of G blocks of 512 threads per tile (G from
+// macenko_fused.cluster_plan: 4 at 256^2 fs=2, 16 at 512^2), each block
+// owning a slice of the sample; the stain::Staged phases (stain_common.cuh)
+// stage the slice's bytes and mask bits in the first pass, the angles,
+// then the two concentrations, in shared memory, so the bisection rounds
+// are shared-memory compares (three rounds per reduction) and the angle,
+// BCD and concentration passes read no device memory; the apply pass is
+// split over the cluster. A sample larger than 16 blocks' shared memory
+// holds (over 293K pixels) is staged in a device-memory scratch buffer
+// instead, by the same code. Reductions
+// run over the block, then across the cluster through distributed shared
+// memory in rank order; the scalar step after a sum (eigenplane, BCD
+// update) runs on one thread and is broadcast. The output is
+// bit-reproducible and equals the plain version's. A tile is then a chain
+// of 20 dependent reductions, and the time grows with the blocks per tile
+// (PERF.md, section 5).
+//
 // vahadane_dict_kernel replaces vahadane_stain_matrix_planar / _dict_kernel
 // (:48-108, :286-323): phases 1-2 only, writing [D(6), n_valid, 0] per
-// tile; the wrapper does the swap / normalization / NaN post-pass.
-//
-// Bound: work per pixel, as K1 (macenko_fused.cu). At fs=2 it=8 nb=10 a
-// 256^2 tile's passes visit 16.5 tiles' worth of pixels (K1: 12.5), and the
-// 8 BCD passes carry a lasso and 9 products per tissue pixel. Simple design,
-// K1's: strided passes over the tile re-read from device memory (L2 keeps
-// it), OD and luminance from shared 256-entry tables, fixed-order block
-// reductions (no float atomics), so the output is bit-reproducible.
+// tile; the wrapper does the swap / normalization / NaN post-pass. It keeps
+// the block-per-tile design (stain::macenko_rows, stain::bcd_iteration):
+// strided passes re-reading the tile through L2, fixed-order block
+// reductions.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,6 +64,8 @@ struct Args {
   int nblk, blk, stp;
   float y_thr, lam_fit, lam, q_lo, q_hi, q_conc;
   int num_iters, it_angle, it_conc;
+  int slice;      // K2: sample pixels staged per block
+  float* scratch;  // K2: the blocks' stages in device memory, or nullptr
 };
 
 struct Shared {
@@ -77,25 +97,62 @@ __device__ __forceinline__ stain::Tile load_tile(const Args& a, Shared& sh) {
                      a.ch_stride, a.nblk, a.blk, a.stp, a.y_thr};
 }
 
-__global__ void __launch_bounds__(kThreads, 2) vahadane_normalize_kernel(Args a) {
-  __shared__ Shared sh;
-  const stain::Tile t = load_tile(a, sh);
-  const float* scal = a.scal + blockIdx.x * 8;
+// K2: one cluster of G blocks per tile (blockIdx.x / G), the bisection
+// operands and the sample's bytes staged in `stage` (dynamic shared memory,
+// 12 * a.slice bytes) or, with a.scratch, in the block's part of it.
+struct ClusterShared {
+  double dbuf[10 * kWarps];
+  float lut[4][256];
+  float fbuf[2 * kWarps];
+  int ibuf[14 * kWarps];
+  float res[8];
+  stain::ClusterSlots cs;
+};
 
+__global__ void __launch_bounds__(kThreads, 2) vahadane_normalize_kernel(Args a) {
+  __shared__ ClusterShared sh;
+  extern __shared__ __align__(16) float stage[];
+  for (int i = threadIdx.x; i < 4 * 256; i += kThreads)
+    sh.lut[i >> 8][i & 255] = a.luts[i];
+  __syncthreads();
+  const unsigned G = cooperative_groups::this_cluster().num_blocks();
+  const int tile = blockIdx.x / G;
+  const size_t tile_off = (size_t)tile * 3 * a.n_pix;
+  const stain::Tile t{a.in + tile_off, sh.lut, a.n_pix, a.pix_stride,
+                      a.ch_stride, a.nblk, a.blk, a.stp, a.y_thr};
+  float* vals = a.scratch ? a.scratch + (size_t)blockIdx.x * 3 * a.slice
+                          : stage;
+  stain::Staged s = stain::make_staged(t, vals, a.slice, sh.fbuf, sh.ibuf,
+                                       sh.dbuf, sh.res, &sh.cs);
+  const float* scal = a.scal + tile * 8;
+
+  // Phases 1-2: warm start and BCD on the sample.
   float D[6];
-  fit_dictionary(a, sh, t, D);
+  stain::staged_macenko_rows<kThreads>(s, a.q_lo, a.q_hi, a.it_angle, D);
+  for (int it = 0; it < a.num_iters; ++it)
+    stain::staged_bcd_iteration<kThreads>(s, D, a.lam_fit);
   // Phase 3: H first, rows normalized.
   float he[6];
   stain::finalize_rows(D, he);
   // Phase 4: apply lasso, 99th-pct concentrations over the sample.
   const stain::Gram g = stain::gram(he);
   float maxc[2];
-  stain::conc_maxc<kThreads>(t, he, g, a.lam, a.q_conc, a.it_conc, sh.fbuf,
-                             sh.ibuf, maxc);
-  // Phase 5: rescale + reconstruction through the target rows.
-  uint8_t* dst = static_cast<uint8_t*>(a.out) + (size_t)blockIdx.x * 3 * a.n_pix;
-  stain::reconstruct<kThreads>(t, dst, he, g, a.lam, maxc, scal, scal[6],
-                               scal[7]);
+  stain::staged_conc_maxc<kThreads>(s, he, g, a.lam, a.q_conc, a.it_conc,
+                                    maxc);
+  // Phase 5: rescale + reconstruction through the target rows, this
+  // block's share of the tile's pixels.
+  const int per = (a.n_pix + (int)G - 1) / (int)G;
+  const int p0 = (int)s.rank * per, p1 = min(a.n_pix, p0 + per);
+  const float scale1 = scal[6] / fmaxf(maxc[0], 1e-8f);
+  const float scale2 = scal[7] / fmaxf(maxc[1], 1e-8f);
+  uint8_t* dst = static_cast<uint8_t*>(a.out) + tile_off;
+  for (int p = p0 + threadIdx.x; p < p1; p += kThreads) {
+    float o0, o1, o2, c1, c2;
+    t.od(p, o0, o1, o2);
+    stain::lasso2(o0, o1, o2, he, g, a.lam, c1, c2);
+    stain::write_pixel(dst + (size_t)p * a.pix_stride, a.ch_stride,
+                       c1 * scale1, c2 * scale2, scal);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads, 2) vahadane_dict_kernel(Args a) {
@@ -111,15 +168,11 @@ __global__ void __launch_bounds__(kThreads, 2) vahadane_dict_kernel(Args a) {
   }
 }
 
-cudaError_t launch(bool dict, int device, const void* in, void* out,
-                   const void* scal, const void* luts, int batch, int n_pix,
-                   int pix_stride, int ch_stride, int nblk, int blk, int stp,
-                   float y_thr, float lam_fit, float lam, float q_lo,
-                   float q_hi, float q_conc, int num_iters, int it_angle,
-                   int it_conc, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (batch == 0) return cudaSuccess;
+Args make_args(const void* in, void* out, const void* scal, const void* luts,
+               int n_pix, int pix_stride, int ch_stride, int nblk, int blk,
+               int stp, float y_thr, float lam_fit, float lam, float q_lo,
+               float q_hi, float q_conc, int num_iters, int it_angle,
+               int it_conc, int slice, float* scratch) {
   Args a;
   a.in = static_cast<const uint8_t*>(in);
   a.out = out;
@@ -140,24 +193,32 @@ cudaError_t launch(bool dict, int device, const void* in, void* out,
   a.num_iters = num_iters;
   a.it_angle = it_angle;
   a.it_conc = it_conc;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dict)
-    vahadane_dict_kernel<<<batch, kThreads, 0, s>>>(a);
-  else
-    vahadane_normalize_kernel<<<batch, kThreads, 0, s>>>(a);
-  return cudaGetLastError();
+  a.slice = slice;
+  a.scratch = scratch;
+  return a;
 }
 
 }  // namespace
 
+// K2 over `batch` tiles: clusters of G blocks, each staging `slice`
+// sample pixels (12 bytes each; macenko_fused.cluster_plan) in `smem` bytes
+// of dynamic shared memory or, where `scratch` is given (smem 0), in
+// batch * G * 12 * slice bytes of device memory.
 extern "C" cudaError_t vahadane_normalize_launch(
     int device, const void* in, void* out, const void* scal, const void* luts,
     int batch, int n_pix, int pix_stride, int ch_stride, int nblk, int blk,
     int stp, float y_thr, float lam_fit, float lam, float q_lo, float q_hi,
-    float q_conc, int num_iters, int it_angle, int it_conc, void* stream) {
-  return launch(false, device, in, out, scal, luts, batch, n_pix, pix_stride,
-                ch_stride, nblk, blk, stp, y_thr, lam_fit, lam, q_lo, q_hi,
-                q_conc, num_iters, it_angle, it_conc, stream);
+    float q_conc, int num_iters, int it_angle, int it_conc, int G, int slice,
+    int smem, void* scratch, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (batch == 0) return cudaSuccess;
+  const Args a = make_args(in, out, scal, luts, n_pix, pix_stride, ch_stride,
+                           nblk, blk, stp, y_thr, lam_fit, lam, q_lo, q_hi,
+                           q_conc, num_iters, it_angle, it_conc, slice,
+                           static_cast<float*>(scratch));
+  return stain::launch_cluster<vahadane_normalize_kernel>(
+      a, device, batch, G, kThreads, smem, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" cudaError_t vahadane_dict_launch(
@@ -165,7 +226,12 @@ extern "C" cudaError_t vahadane_dict_launch(
     int n_pix, int pix_stride, int ch_stride, int nblk, int blk, int stp,
     float y_thr, float lam_fit, float q_lo, float q_hi, int num_iters,
     int it_angle, void* stream) {
-  return launch(true, device, in, out, nullptr, luts, batch, n_pix,
-                pix_stride, ch_stride, nblk, blk, stp, y_thr, lam_fit, 0.0f,
-                q_lo, q_hi, 0.0f, num_iters, it_angle, 0, stream);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (batch == 0) return cudaSuccess;
+  const Args a = make_args(in, out, nullptr, luts, n_pix, pix_stride,
+                           ch_stride, nblk, blk, stp, y_thr, lam_fit, 0.0f,
+                           q_lo, q_hi, 0.0f, num_iters, it_angle, 0, 0, nullptr);
+  vahadane_dict_kernel<<<batch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return cudaGetLastError();
 }

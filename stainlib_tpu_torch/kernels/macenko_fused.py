@@ -35,14 +35,21 @@ Kernel source note (``csrc/macenko_fused.cu``):
   tiles share an SM the time follows the pass count. K10 is one pass; K3
   and K7 have no reduction: a lasso and three ``expf`` per pixel, bytes in
   and out.
-* Design: K1, K4, K6, K10 run one 512-thread block per tile; every phase
-  is a strided pass over the tile's pixels followed by a warp-shuffle +
+* Design: K1, K6, K10 run one 512-thread block per tile; every phase is
+  a strided pass over the tile's pixels followed by a warp-shuffle +
   shared-memory reduction in a fixed order (no float atomics, so the
   output is bit-reproducible). The tile is re-read from device memory on
   every pass and L2 keeps it close; OD and the luminance terms come from
   256-entry tables built on the CPU, so the kernels take no ``log`` per
-  pass and see the same OD bits as the plain versions. K3 and K7 run over
-  (pixel chunks x images), so one large field fills the card.
+  pass and see the same OD bits as the plain versions. K4 runs one
+  thread-block cluster of :func:`cluster_plan`'s G = 16 blocks per tile
+  (the tiled route's batch is one subsample): each block stages its
+  slice's bytes, pseudo-angles, then concentrations, in shared memory, so
+  only the first pass reads device memory and the bisection rounds (three
+  per reduction) are shared-memory compares; the reductions cross the
+  cluster through distributed shared memory in rank order. A tile over
+  293K pixels is staged in device memory instead. K3 and K7 run
+  over (pixel chunks x images), so one large field fills the card.
 
 On a CUDA tensor the wrappers launch the kernels; on a CPU tensor they run
 the plain torch versions (``*_ref``), which mirror the TPU kernels step for
@@ -54,6 +61,7 @@ step and are the kernels' oracles. ``launches``, ``fit_launches``,
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -112,9 +120,11 @@ def _tables(device):
     return torch.stack([od] + [w * lin for w in _LUMA]).to(device).contiguous()
 
 
+@functools.lru_cache(maxsize=None)
 def _y_threshold(luminosity_threshold: float) -> float:
     """Linear-luminance threshold equivalent to ``L/100 < t`` (L* is
-    monotone in Y), in the kernel's f32 arithmetic."""
+    monotone in Y), in the kernel's f32 arithmetic. Cached: the wrappers
+    call it on every launch."""
     t = torch.tensor(luminosity_threshold, dtype=torch.float32)
     lt = 100.0 * t
     if lt > 8.0:
@@ -165,6 +175,64 @@ def _sample_args(n_pix: int, stride: int):
     bs, step, blocks = (split if split is not None
                         else (n_pix // LANES, n_pix // LANES, 1))
     return blocks, bs * LANES, step * LANES
+
+
+# Thread-block clusters of the staged kernels (K2, K4): a tile's sample is
+# split over G blocks of 512 threads, each staging 12 bytes per sample pixel
+# (two float32 bisection operands, the pixel's bytes and mask bit).
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+STAGE_BYTES = 12
+_SMEM_SM = 228 * 1024  # an H100 SM's shared memory
+_SMEM_BLOCK = 227 * 1024  # one block's opt-in maximum
+# The kernels' static shared memory (10.1 KB: tables, reduction buffers, the
+# cluster's slots) and the 1 KB the runtime keeps per block, rounded up.
+_SMEM_STATIC = 12 * 1024
+
+
+class ClusterPlan(NamedTuple):
+    g: int  # blocks per tile, the cluster size
+    slice: int  # sample pixels staged per block; g * slice >= the sample
+    smem: int  # dynamic shared memory per block, bytes; 0: the stages lie
+    #            in a device-memory scratch buffer (:func:`stage_scratch`)
+
+
+def cluster_plan(n_sample: int, kernel: str,
+                 g: int | None = None) -> ClusterPlan:
+    """The cluster size G and the shared memory per block of K4 (``"K4"``,
+    the Macenko fit) or K2 (``"K2"``, Vahadane) for a tile whose estimation
+    sample holds ``n_sample`` pixels.
+
+    K4 takes G = 16: the tiled route fits one subsample per field, so the
+    cluster spreads it over as many SMs as a cluster can hold. K2 takes the
+    smallest G whose slice leaves room for two blocks per SM, else 16. A
+    slice larger than one block's shared memory (a sample over 293K pixels
+    at G = 16) is staged in device memory instead (``smem`` 0). ``g``
+    forces G (tests and measurements).
+    """
+    if kernel not in ("K2", "K4"):
+        raise ValueError(f"no cluster plan for kernel {kernel!r}")
+
+    def stage_bytes(size):
+        return STAGE_BYTES * -(-n_sample // size)
+
+    if g is None:
+        two = _SMEM_SM // 2 - _SMEM_STATIC
+        fits = [s for s in CLUSTER_SIZES if stage_bytes(s) <= two]
+        g = fits[0] if fits and kernel == "K2" else CLUSTER_SIZES[-1]
+    if g not in CLUSTER_SIZES:
+        raise ValueError(f"cluster size {g} is not one of {CLUSTER_SIZES}")
+    smem = stage_bytes(g)
+    return ClusterPlan(g, -(-n_sample // g),
+                       smem if smem <= _SMEM_BLOCK - _SMEM_STATIC else 0)
+
+
+def stage_scratch(plan: ClusterPlan, batch: int, device):
+    """The device-memory stages of ``batch`` tiles under a plan whose
+    slices fit no block's shared memory (``plan.smem == 0``), else None."""
+    if plan.smem:
+        return None
+    return torch.empty(batch * plan.g * STAGE_BYTES // 4 * plan.slice,
+                       dtype=torch.float32, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -484,34 +552,47 @@ def macenko_fit_planar_ref(rgb_planar, luminosity_threshold: float = 0.8,
             torch.stack(maxc, -1))
 
 
-def macenko_fit_planar(rgb_planar, luminosity_threshold: float = 0.8,
-                       angular_percentile: float = 99.0, q_conc: float = 99.0,
-                       regularizer: float = 0.01, n_bisect: int = 14):
-    """Macenko estimation over planar (B, 3, R, 128) uint8 tiles with no
-    apply (``macenko_fused.py:688-736``): ``(stain_matrix (B, 2, 3),
-    max_c (B, 2))``, the per-image half of ``normalizer.py:45-48``. The
-    JAX signature's TPU-only knobs (``interpret``, ``tiles_per_step``,
-    ``n_cands``) have no counterpart here."""
+def _fit_launch(rgb_planar, luminosity_threshold: float = 0.8,
+                angular_percentile: float = 99.0, q_conc: float = 99.0,
+                regularizer: float = 0.01, n_bisect: int = 14,
+                g: int | None = None):
+    """K4 on CUDA tiles at :func:`cluster_plan`'s G (``g`` forces it)."""
     global fit_launches
-    _check(rgb_planar, planar=True)
-    kw = dict(luminosity_threshold=luminosity_threshold,
-              angular_percentile=angular_percentile, q_conc=q_conc,
-              regularizer=regularizer, n_bisect=n_bisect)
-    if rgb_planar.device.type == "cpu":
-        return macenko_fit_planar_ref(rgb_planar, **kw)
     from stainlib_tpu_torch.kernels import _build
 
     B, dev = rgb_planar.shape[0], rgb_planar.device
     n_pix = _n_pix(rgb_planar, True)
+    plan = cluster_plan(n_pix, "K4", g)
+    scratch = stage_scratch(plan, B, dev)
     plane = torch.empty((B, 8), dtype=torch.float32, device=dev)
     _build.launch("macenko_fit_launch", dev, rgb_planar.data_ptr(),
                   plane.data_ptr(), _tables(dev).data_ptr(), B, n_pix, 1,
                   n_pix, _y_threshold(luminosity_threshold), regularizer,
                   (100.0 - angular_percentile) / 100.0,
                   angular_percentile / 100.0, q_conc / 100.0,
-                  max(n_bisect - 4, 8), n_bisect)
+                  max(n_bisect - 4, 8), n_bisect, *plan,
+                  None if scratch is None else scratch.data_ptr())
     fit_launches += 1
     return plane[:, :6].reshape(B, 2, 3), plane[:, 6:8]
+
+
+def macenko_fit_planar(rgb_planar, luminosity_threshold: float = 0.8,
+                       angular_percentile: float = 99.0, q_conc: float = 99.0,
+                       regularizer: float = 0.01, n_bisect: int = 14):
+    """Macenko estimation over planar (B, 3, R, 128) uint8 tiles with no
+    apply (``macenko_fused.py:688-736``): ``(stain_matrix (B, 2, 3),
+    max_c (B, 2))``, the per-image half of ``normalizer.py:45-48``. On the
+    card each tile is one cluster of :func:`cluster_plan`'s G blocks. The
+    JAX signature's TPU-only knobs
+    (``interpret``, ``tiles_per_step``, ``n_cands``) have no counterpart
+    here."""
+    _check(rgb_planar, planar=True)
+    kw = dict(luminosity_threshold=luminosity_threshold,
+              angular_percentile=angular_percentile, q_conc=q_conc,
+              regularizer=regularizer, n_bisect=n_bisect)
+    if rgb_planar.device.type == "cpu":
+        return macenko_fit_planar_ref(rgb_planar, **kw)
+    return _fit_launch(rgb_planar, **kw)
 
 
 # ---------------------------------------------------------------------------

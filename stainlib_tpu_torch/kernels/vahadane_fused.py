@@ -31,11 +31,20 @@ Kernel source note (``csrc/vahadane_fused.cu``):
   n_bisect=10`` a 256^2 tile's passes visit 16.5 tiles' worth of pixels
   (K1: 12.5); each BCD pass adds a lasso and nine products per tissue
   pixel.
-* Design: K1's (one 512-thread block per tile, passes re-reading the tile
-  through L2, shared OD/luminance tables, fixed-order block reductions)
-  with the phases shared in ``csrc/stain_common.cuh``. A BCD iteration is
-  one pass: lasso codes, the nine masked sums in one block reduction, the
-  row update on one thread, broadcast through shared memory.
+* Design: the fit+transform kernel (K2) runs one thread-block cluster of
+  :func:`~stainlib_tpu_torch.kernels.macenko_fused.cluster_plan`'s G
+  blocks per tile, each owning a slice of the estimation sample: the
+  slice's bytes and mask bits, the pseudo-angles, then the two
+  concentrations are staged in shared memory, so only the first pass and
+  the apply read device memory and the bisection rounds (three per
+  reduction) are shared-memory compares; reductions cross the cluster
+  through distributed shared memory in rank order; a sample over 293K
+  pixels is staged in device memory instead. A BCD iteration is one
+  pass: lasso codes, the nine masked sums in one reduction, the row update
+  on one thread, broadcast. The dictionary kernel (K8) keeps
+  K1's design (one 512-thread block per tile, passes re-reading the tile
+  through L2, fixed-order block reductions); both share the phases in
+  ``csrc/stain_common.cuh``.
 
 On a CUDA tensor the wrappers launch the kernels; on a CPU tensor they run
 the plain torch versions (``*_ref``), which follow the JAX kernel bodies
@@ -67,6 +76,8 @@ from stainlib_tpu_torch.kernels.macenko_fused import (
     _tables,
     _target_scalars,
     _y_threshold,
+    cluster_plan,
+    stage_scratch,
 )
 from stainlib_tpu_torch.ops.dictlearn import _HE_INIT
 
@@ -220,22 +231,27 @@ def vahadane_stain_matrix_planar_ref(rgb_planar, **kw):
 def _launch(x, planar: bool, stain_matrix_tgt, max_c_target,
             regularizer_fit: float = 0.1, regularizer: float = 0.01,
             num_iters: int = 12, luminosity_threshold: float = 0.8,
-            n_bisect: int = 14, q_conc: float = 99.0, fit_stride: int = 1):
+            n_bisect: int = 14, q_conc: float = 99.0, fit_stride: int = 1,
+            g: int | None = None):
+    """K2 on CUDA tiles at :func:`cluster_plan`'s G (``g`` forces it)."""
     global launches
     from stainlib_tpu_torch.kernels import _build
 
     B, dev = x.shape[0], x.device
     n_pix = _n_pix(x, planar)
+    nblk, blk, stp = _sample_args(n_pix, fit_stride)
+    plan = cluster_plan(nblk * blk, "K2", g)
+    scratch = stage_scratch(plan, B, dev)
     scal = _target_scalars(stain_matrix_tgt, max_c_target, B, dev)
     out = torch.empty_like(x)
     pix_stride, ch_stride = (1, n_pix) if planar else (3, 1)
     _build.launch("vahadane_normalize_launch", dev, x.data_ptr(),
                   out.data_ptr(), scal.data_ptr(), _tables(dev).data_ptr(),
-                  B, n_pix, pix_stride, ch_stride,
-                  *_sample_args(n_pix, fit_stride),
+                  B, n_pix, pix_stride, ch_stride, nblk, blk, stp,
                   _y_threshold(luminosity_threshold), regularizer_fit,
                   regularizer, (100.0 - _Q_ANGLE) / 100.0, _Q_ANGLE / 100.0,
-                  q_conc / 100.0, num_iters, max(n_bisect - 4, 8), n_bisect)
+                  q_conc / 100.0, num_iters, max(n_bisect - 4, 8), n_bisect,
+                  *plan, None if scratch is None else scratch.data_ptr())
     launches += 1
     return out
 
@@ -258,7 +274,8 @@ def vahadane_normalize_planar(
     (B, 2). ``regularizer_fit`` is the dictionary learner's L1 weight,
     ``regularizer`` the apply lasso's. ``fit_stride`` restricts the warm
     start, the BCD and the concentration percentile to the JAX kernel's
-    stratified row sample; the apply covers every pixel. The JAX
+    stratified row sample; the apply covers every pixel. On the card each
+    tile is one cluster of ``cluster_plan``'s G blocks. The JAX
     signature's TPU-only knobs (``interpret``, ``tiles_per_step``,
     ``n_cands``) have no counterpart here.
     """

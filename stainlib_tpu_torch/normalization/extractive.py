@@ -31,6 +31,7 @@ from stainlib_tpu_torch.kernels.macenko_fused import (
     normalize_with_matrix_planar,
 )
 from stainlib_tpu_torch.ops.colorspace import to_uint8
+from stainlib_tpu_torch.ops.fdiv import f64
 from stainlib_tpu_torch.ops.lasso import get_concentrations
 from stainlib_tpu_torch.ops.percentile import percentile
 
@@ -166,8 +167,10 @@ def reconstruct(concentrations, stain_matrix):
     """``255 * exp(-C @ M)`` -> uint8 (``normalizer.py:49-50``), shared with
     the stain augmenter (``augmenter.py:445-448``). ``C @ M`` is written as
     ``C0 * M[0] + C1 * M[1]``, each product and the sum rounded in float32,
-    so the card and the CPU round it the same (a matrix product does not)."""
+    and ``exp`` is evaluated in float64 and rounded once to float32, so the
+    card and the CPU round both the same (a matrix product and a float32
+    ``exp`` do not)."""
     C = torch.as_tensor(concentrations)
     M = torch.as_tensor(stain_matrix, device=C.device).to(C.dtype)
     od = C[..., 0:1] * M[..., 0, :] + C[..., 1:2] * M[..., 1, :]
-    return to_uint8(255.0 * torch.exp(-od))
+    return to_uint8(255.0 * f64(torch.exp, -od))

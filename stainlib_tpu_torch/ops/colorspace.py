@@ -14,7 +14,11 @@ device of its input. The 3x3 (and 3x1) contractions, the JAX module's
 ``_mm`` at ``Precision.HIGHEST`` (``colorspace.py:31-37``), are written as
 float32 multiplies and adds in a fixed order (:func:`_contract`), not as
 ``@``: a matrix product rounds differently on the card than on the CPU,
-separate elementwise multiplies and adds round the same on both.
+separate elementwise multiplies and adds round the same on both. The
+transcendentals (``pow``, ``log``, ``exp``) are evaluated in float64 and
+rounded once to float32 (``ops.fdiv.f64``): CUDA's float32 ``powf``,
+``logf`` and ``expf`` and the CPU's round differently in the last bit,
+their float64 results round to the same float32.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from stainlib_tpu_torch.ops.fdiv import fdiv
+from stainlib_tpu_torch.ops.fdiv import f64, fdiv
 
 # OpenCV's RGB->XYZ matrix (ITU-R BT.709 primaries, D65).
 _RGB2XYZ = np.array(
@@ -72,20 +76,20 @@ def _f32(x, device):
 
 def _cbrt(x):
     # torch has no cbrt; every caller selects this branch only where x > 0.
-    return torch.pow(x, 1.0 / 3.0)
+    return f64(torch.pow, x, 1.0 / 3.0)
 
 
 def _srgb_gamma_expand(c):
     """sRGB electro-optical transfer: gamma-encoded [0,1] -> linear [0,1]."""
     return torch.where(c <= 0.04045, fdiv(c, 12.92),
-                       fdiv(c + 0.055, 1.055) ** 2.4)
+                       f64(torch.pow, fdiv(c + 0.055, 1.055), 2.4))
 
 
 def _srgb_gamma_compress(c):
     """Linear [0,1] -> gamma-encoded sRGB [0,1]."""
     c = torch.clamp_min(c, 0.0)
     return torch.where(c <= 0.0031308, c * 12.92,
-                       1.055 * c ** (1.0 / 2.4) - 0.055)
+                       1.055 * f64(torch.pow, c, 1.0 / 2.4) - 0.055)
 
 
 def _lab_f(t):
@@ -145,7 +149,7 @@ def rgb_to_od(rgb):
     """RGB [0,255] -> optical density ``max(-log(max(I,1)/255), 1e-6)``
     (``convert_RGB_to_OD``, ``stain_utils.py:101-112``)."""
     I = torch.clamp_min(torch.as_tensor(rgb).to(torch.float32), 1.0)
-    return torch.clamp_min(-torch.log(fdiv(I, 255.0)), 1e-6)
+    return torch.clamp_min(-f64(torch.log, fdiv(I, 255.0)), 1e-6)
 
 
 def od_to_rgb(od):
@@ -153,7 +157,7 @@ def od_to_rgb(od):
     1e-6))`` (``convert_OD_to_RGB``, ``stain_utils.py:114-124``, without the
     uint8 cast)."""
     od = torch.clamp_min(torch.as_tensor(od).to(torch.float32), 1e-6)
-    return 255.0 * torch.exp(-od)
+    return 255.0 * f64(torch.exp, -od)
 
 
 def rgb_to_hed(rgb):
@@ -162,7 +166,7 @@ def rgb_to_hed(rgb):
     hed_from_rgb``."""
     c = torch.clamp_min(fdiv(torch.as_tensor(rgb).to(torch.float32), 255.0),
                         1e-6)
-    return _contract(fdiv(torch.log(c), _LOG_ADJUST), _HED_FROM_RGB)
+    return _contract(fdiv(f64(torch.log, c), _LOG_ADJUST), _HED_FROM_RGB)
 
 
 def hed_to_rgb(hed):
@@ -171,7 +175,7 @@ def hed_to_rgb(hed):
     rgb_from_hed), 0, 1) * 255``."""
     hed = torch.as_tensor(hed).to(torch.float32)
     log_rgb = -_contract(hed * (-_LOG_ADJUST), _RGB_FROM_HED)
-    return torch.clamp(torch.exp(log_rgb), 0.0, 1.0) * 255.0
+    return torch.clamp(f64(torch.exp, log_rgb), 0.0, 1.0) * 255.0
 
 
 def rgb_to_gray(rgb):

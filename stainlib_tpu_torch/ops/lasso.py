@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from stainlib_tpu_torch.ops.colorspace import rgb_to_od
+from stainlib_tpu_torch.ops.fdiv import sum3
 
 
 def nonneg_lasso_k2(od, stain_matrix, regularizer: float = 0.01):
@@ -20,13 +21,13 @@ def nonneg_lasso_k2(od, stain_matrix, regularizer: float = 0.01):
     batch axes."""
     od = torch.as_tensor(od).to(torch.float32)
     M = torch.as_tensor(stain_matrix, device=od.device).to(torch.float32)
-    g11 = (M[..., 0, :] * M[..., 0, :]).sum(-1)
-    g22 = (M[..., 1, :] * M[..., 1, :]).sum(-1)
-    g12 = (M[..., 0, :] * M[..., 1, :]).sum(-1)
+    g11 = sum3(M[..., 0, :] * M[..., 0, :])
+    g22 = sum3(M[..., 1, :] * M[..., 1, :])
+    g12 = sum3(M[..., 0, :] * M[..., 1, :])
     det = torch.clamp_min(g11 * g22 - g12 * g12, 1e-12)
 
-    b1 = (od * M[..., 0, :]).sum(-1) - regularizer
-    b2 = (od * M[..., 1, :]).sum(-1) - regularizer
+    b1 = sum3(od * M[..., 0, :]) - regularizer
+    b2 = sum3(od * M[..., 1, :]) - regularizer
 
     # Both stains active: c = G^{-1} b.
     c1_full = (g22 * b1 - g12 * b2) / det

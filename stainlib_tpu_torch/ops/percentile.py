@@ -148,8 +148,10 @@ def masked_mean(values, mask, axis=None):
 
 def mean_std(values, axis=None):
     """Population mean and std (``percentile.py:153-159``), dividing by N
-    as ``cv.meanStdDev`` does (``stain_utils.py:181``)."""
-    v = torch.as_tensor(values).to(torch.float32)
+    as ``cv.meanStdDev`` does (``stain_utils.py:181``). Evaluated in
+    float64 and rounded once to float32: a float32 sum runs in another
+    order on the card than on the CPU."""
+    v = torch.as_tensor(values).to(torch.float32).double()
     mu = v.mean(dim=axis)
     sd = torch.sqrt(torch.clamp_min((v * v).mean(dim=axis) - mu * mu, 0.0))
-    return mu, sd
+    return mu.float(), sd.float()

@@ -128,3 +128,50 @@ def test_wrappers_reject_strided_input(cuda):
         mf.macenko_fit_planar(fs.to_planar(rgb))
     with pytest.raises(ValueError, match="contiguous"):
         mf.eigenplane(fs.to_planar(rgb))
+
+
+def _k4_sizes():
+    """Subsample sizes of the tiled route (8192..512^2 pixels): the
+    smallest, one that is no multiple of 16 x 512, a 256^2 one, the
+    largest; and a 1024^2 tile, which the public wrapper takes and the
+    cluster stages in device memory."""
+    return [8192, 9216, 256 * 256, 512 * 512, 1024 * 1024]
+
+
+def _k4_exact(planar, g=None):
+    Mk, mck = mf._fit_launch(planar, g=g)
+    Mp, mcp = mf.macenko_fit_planar_ref(planar)
+    for got, want in ((Mk, Mp), (mck, mcp)):
+        assert torch.allclose(got, want, rtol=0, atol=0, equal_nan=True), (
+            float((got - want).abs().nan_to_num(0.0).max()))
+    return Mk, mck
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_pix", _k4_sizes())
+def test_k4_cluster_equals_plain_at_every_cluster_size(cuda, n_pix):
+    """K4's rows and maxC equal the plain version's exactly at each G the
+    plan can take (forced through ``cluster_plan``'s ``g``), whether the
+    slices are staged in shared or in device memory; two runs agree."""
+    rgb = torch.from_numpy(he_batch(3, n_pix // 128, 128, seed=101)).to(cuda)
+    planar = fs.to_planar(rgb).contiguous()
+    assert mf.cluster_plan(n_pix, "K4").g == 16
+    for g in mf.CLUSTER_SIZES:
+        _k4_exact(planar, g)
+    before = mf.fit_launches
+    Mk, mck = _k4_exact(planar)
+    assert mf.fit_launches == before + 1
+    again = mf.macenko_fit_planar(planar)
+    assert torch.equal(again[0], Mk) and torch.equal(again[1], mck)
+
+
+@pytest.mark.cuda
+def test_k4_cluster_white_tile_and_single_image(cuda):
+    """An all-white tile (empty mask) and one image alone: exactly the
+    plain version."""
+    tiles = he_batch(3, 128, 128, seed=102)
+    tiles[1] = 255
+    planar = fs.to_planar(torch.from_numpy(tiles).to(cuda)).contiguous()
+    Mk, mck = _k4_exact(planar)
+    one = _k4_exact(planar[2:3].contiguous())
+    assert torch.equal(one[0][0], Mk[2]) and torch.equal(one[1][0], mck[2])

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from stainlib_tpu_torch.kernels import fused_stain as fs
+from stainlib_tpu_torch.kernels import macenko_fused as mf
 from stainlib_tpu_torch.kernels import vahadane_fused as vf
 from stainlib_tpu_torch.normalization import extractive
 from synth import he_batch, he_patch
@@ -126,3 +127,30 @@ def test_cuda_wrappers_reject_strided_input(cuda):
         fs.fused_normalize_planar(fs.to_planar(rgb), M.expand(2, 2, 3), M, mc)
     out = np.asarray(vf.vahadane_normalize(rgb, M, mc).cpu())
     assert out.dtype == np.uint8 and out.shape == (2, 256, 256, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side,kw", [(128, {}), (256, VFAST), (512, {}),
+                                     (512, VFAST), (1024, {})],
+                         ids=["128-fs1", "256-fs2", "512-fs1", "512-fs2",
+                              "1024-fs1"])
+def test_k2_cluster_equals_plain_at_every_cluster_size(cuda, side, kw):
+    """K2's bytes equal the plain version's at each G the plan can take for
+    the tile's sample (forced through ``cluster_plan``'s ``g``), whether
+    the slices are staged in shared or in device memory (1024^2 at fs=1,
+    and the small G of the others), with an all-white tile in the batch;
+    two runs are identical."""
+    M, mc = _params(cuda)
+    tiles = he_batch(2, side, side, seed=103)
+    tiles[1, : side // 2] = 255
+    tiles = np.concatenate([tiles, np.full_like(tiles[:1], 255)])
+    rgb = torch.from_numpy(tiles).to(cuda)
+    want = vf.vahadane_normalize_ref(rgb, M, mc, **kw)
+    for g in mf.CLUSTER_SIZES:
+        got = vf._launch(rgb, False, M, mc, g=g, **kw)
+        assert torch.equal(got, want), (g, int(
+            (got.int() - want.int()).abs().max()))
+    assert (want[2] == 255).all()
+    got = vf.vahadane_normalize(rgb, M, mc, **kw)
+    assert torch.equal(got, want)
+    assert torch.equal(vf.vahadane_normalize(rgb, M, mc, **kw), got)
