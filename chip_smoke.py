@@ -32,9 +32,11 @@ It builds the hand-written CUDA kernels from the sources in the checkout,
 counts each kernel's launches over its path, holds every kernel against
 its plain PyTorch version and against the functional path, checks that two
 runs give identical bytes, and times each kernel against its plain version
-with CUDA events. The thread-block-cluster kernels K2 and K4 print their
-cluster plan (``scripts/torch_cluster_sweep.py`` times them at every
-cluster size). Where ``.runs/parent`` holds a ``git archive`` of the
+with CUDA events. The thread-block-cluster kernels K2, K4 and K5 print their
+cluster plan (``scripts/torch_cluster_sweep.py`` times K2 and K4 at every
+cluster size; K5 is held to the same bytes at every cluster size here).
+``StainAugmentor.pop`` is timed on the host clock, and one pop's device
+work is listed from a profiler trace. Where ``.runs/parent`` holds a ``git archive`` of the
 parent commit, ``scripts/torch_time_trees.py`` times both trees' public
 entry points in turns (phase 39) and ``scripts/torch_compare_trees.py``
 compares all ten kernels' outputs (phase 40); without it those two phases
@@ -160,6 +162,46 @@ def device_ms(fn, kernel: str, reps=REPS):
 
 def fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def pop_ms(aug, pops: int = 64, warm: int = 8) -> float:
+    """Median host-clock time of one ``aug.pop()`` in ms, its copy-out and
+    a synchronize included, over ``pops`` pops after ``warm``."""
+    times = []
+    for i in range(warm + pops):
+        t0 = time.perf_counter()
+        aug.pop()
+        torch.cuda.synchronize()
+        if i >= warm:
+            times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def time_host_us(fn, reps: int = 2000) -> float:
+    """Mean host-clock time of ``fn()`` in microseconds over ``reps``."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+def device_events(fn, calls: int = 3) -> list:
+    """Names and counts of the device activities (kernels, copies) of
+    ``calls`` calls of ``fn()``, from ``torch.profiler``. A short window can
+    lose the activities of its first call, so a count may fall short of
+    ``calls``; every kind of activity shows in the later ones. Empty where
+    the profiler reports none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+    return [f"{e.key} x{e.count}" for e in prof.key_averages()
+            if getattr(e, "device_time_total", 0.0) > 0]
 
 
 def time_pair(kernel, plain):
@@ -359,6 +401,43 @@ def augment_phases(dev, smi, batch, batch_np, planar) -> list:
             f"consecutive pops differ; 99th-pct |pop - functional pop| "
             f"max={max(q99)} u8 (gate <=4, tests/test_augmentation.py:201)")
 
+    names = device_events(aug.pop)
+    stray = [n for n in names
+             if re.search(r"cat|fill|full|zero", n, re.IGNORECASE)]
+    assert not stray, f"a pop builds a table on the device: {names}"
+    assert not names or any("augment_apply_kernel" in n for n in names), names
+
+    def enter_context():
+        with torch.cuda.device(dev):
+            pass
+
+    context_us = time_host_us(enter_context)
+    # Where a pop's host time goes: the draws and their copy to the card,
+    # K7 through its wrapper, the copy-out to numpy.
+    g33 = gen(34)
+    a33, b33 = AF._stain_draws(g33, (1,), 0.2, 0.2, dev)
+    state = aug._fused_state
+
+    def apply_and_wait():
+        AF._stain_augment_pop_fused_apply(state, a33, b33)
+        torch.cuda.synchronize()
+
+    out33 = AF._stain_augment_pop_fused_apply(state, a33, b33)[0]
+    parts = (time_host_us(lambda: AF._stain_draws(g33, (1,), 0.2, 0.2, dev),
+                          300),
+             time_host_us(apply_and_wait, 300),
+             time_host_us(lambda: out33.cpu().numpy(), 300))
+    log(33, f"a pop's parts on the host clock, mean of 300: the draws and "
+            f"their copy in {parts[0]:.1f} us, K7 through its wrapper and a "
+            f"synchronize {parts[1]:.1f} us, the copy-out to numpy "
+            f"{parts[2]:.1f} us")
+    log(33, f"StainAugmentor.pop one {SIDE}^2 image on the host clock, copy-"
+            f"out and synchronize included: {pop_ms(aug):.4f} ms (median of "
+            f"64 pops after 8); device activities of 3 pops "
+            f"(torch.profiler): {names or 'not measured'}; entering a "
+            f"torch.cuda.device context, which a launch on the current "
+            f"device now skips: {context_us:.2f} us; card '{smi}'")
+
     # The large-field path, counted: stain_augment on one 2048^2 field.
     side = FIELDS[-1]
     field = torch.from_numpy(tiles(1, side, SEED + 40)[0]).to(dev)
@@ -380,6 +459,19 @@ def augment_phases(dev, smi, batch, batch_np, planar) -> list:
             f"launches K7={f_launches[0]} K6={f_launches[1]}; K7 vs plain "
             f"max={mx34} u8, share differing={share34:.3e}; identical to the "
             f"512^2-blockified route")
+
+    # K7 on an interleaved batch whose H*W is odd: image bases off the
+    # 16-byte grid, a scalar head and tail around the 128-bit groups.
+    odd = torch.from_numpy(tiles(3, 255, SEED + 41)).to(dev)
+    mo = vf._prior_where_nan(stain_matrix_macenko(odd))
+    ao, bo = draws(33, (3,))
+    for bg in (False, True):
+        got = mf.augment_with_matrix(odd, mo, ao, bo, augment_background=bg)
+        assert torch.equal(got, mf.augment_with_matrix_ref(
+            odd, mo, ao, bo, augment_background=bg)), bg
+    log(34, "K7 on 3 interleaved images of 255x255 (H*W odd, bases not "
+            "16-byte aligned), background flag off and on: byte-identical "
+            "to the plain version")
 
     # 35. The torch-only augmenters on the card against their CPU
     # evaluation with the same draws; time per batch.
@@ -467,6 +559,17 @@ def plan_text(kernel: str, side_or_n: int, fit_stride: int | None = None):
              else "staged in device memory")
     return (f"{kernel} plan at {shape} ({n} sample px): G={p.g} blocks of "
             f"512 threads per tile, {p.slice} px staged per block, {where}")
+
+
+def k5_plan_text(x) -> str:
+    """K5's cluster plan for the interleaved CUDA tiles ``x``, as a phrase."""
+    from stainlib_tpu_torch.kernels import reinhard_fused as rf
+
+    slots = rf._block_slots(x.device)
+    p = rf.reinhard_plan(x.shape[0], x.shape[1] * x.shape[2], slots)
+    return (f"K5 plan for {x.shape[0]} tiles of {x.shape[1] * x.shape[2]} px "
+            f"on {slots} block slots: G={p.g} blocks of 512 threads per "
+            f"tile, {p.slice} px per block")
 
 
 def parent_phases() -> None:
@@ -970,6 +1073,20 @@ def run(dev) -> int:
             f"{share26:.3e}; B={B_LARGE} {SIDE_LARGE}^2: max={mx26b} u8, "
             f"share differing={share26b:.3e} (gate: max<=1, share<1e-3)")
 
+    one256 = batch[:1].contiguous()
+    for label, x in ((f"B={B} {SIDE}^2", batch),
+                     (f"B={B_LARGE} {SIDE_LARGE}^2", big512),
+                     (f"B=1 {SIDE}^2", one256)):
+        g1 = rf._launch(x, False, means, stds, g=1)
+        for g in rf.CLUSTER_SIZES[1:]:
+            assert torch.equal(rf._launch(x, False, means, stds, g=g), g1), (
+                label, g)
+        assert torch.equal(rf.reinhard_normalize(x, means, stds), g1), label
+        log(26, f"K5 {label}: clusters of {list(rf.CLUSTER_SIZES)} blocks "
+                f"per tile and the plan's each byte-identical to G=1; "
+                f"{k5_plan_text(x)}")
+    assert torch.equal(rf.reinhard_normalize(one256, means, stds)[0], rout[0])
+
     # 27. K5 against the functional reinhard.transform
     # (tests/test_reinhard_fused.py:23-24's budget). The gate holds the
     # functional path evaluated on the CPU, where the tests hold it to the
@@ -1000,13 +1117,20 @@ def run(dev) -> int:
                    lambda: rf.reinhard_normalize_ref(batch, means, stds))
     t5b = time_pair(lambda: rf.reinhard_normalize(big512, means, stds),
                     lambda: rf.reinhard_normalize_ref(big512, means, stds))
-    for label, ((ka, kb), (pa, pb)), n in ((f"B={B} {SIDE}^2", t5, B),
-                                           (f"B={B_LARGE} {SIDE_LARGE}^2",
-                                            t5b, B_LARGE)):
+    t5c = time_pair(lambda: rf.reinhard_normalize(one256, means, stds),
+                    lambda: rf.reinhard_normalize_ref(one256, means, stds))
+    for label, ((ka, kb), (pa, pb)), x in (
+            (f"B={B} {SIDE}^2", t5, batch),
+            (f"B={B_LARGE} {SIDE_LARGE}^2", t5b, big512),
+            (f"B=1 {SIDE}^2", t5c, one256)):
+        d5 = device_ms(lambda: rf.reinhard_normalize(x, means, stds),
+                       "reinhard_kernel")
         log(29, f"K5 {label}, median of {REPS} CUDA-event runs (plain, "
-                f"kernel, kernel, plain): kernel {ka:.3f}/{kb:.3f} ms = "
-                f"{n / min(ka, kb) * 1e3:.0f} tiles/s; plain "
-                f"{pa:.3f}/{pb:.3f} ms; card '{smi}'")
+                f"kernel, kernel, plain): kernel {ka:.4f}/{kb:.4f} ms = "
+                f"{x.shape[0] / min(ka, kb) * 1e3:.0f} tiles/s; plain "
+                f"{pa:.3f}/{pb:.3f} ms; the kernel alone (torch.profiler "
+                f"device time per call, {REPS} calls): {fmt_ms(d5)}; "
+                f"{k5_plan_text(x)}; card '{smi}'")
     kernels.append(dict(
         name="reinhard_normalize_planar", route="cuda",
         source="stainlib_tpu_torch/kernels/csrc/reinhard_fused.cu",

@@ -70,7 +70,7 @@ def main() -> int:
                                                    rgb_to_od)
     from stainlib_tpu_torch.ops.fdiv import f64
     from stainlib_tpu_torch.ops.lasso import get_concentrations
-    from stainlib_tpu_torch.ops.linalg3 import eigh3x3
+    from stainlib_tpu_torch.ops.linalg3 import eigh3x3_f64
     from stainlib_tpu_torch.ops.percentile import (masked_percentile,
                                                    mean_std, percentile)
     from stainlib_tpu_torch.ops.tissue import (standardize_brightness,
@@ -94,8 +94,8 @@ def main() -> int:
     rp = reinhard.fit(target)
     x = step("reinhard: standardize_brightness", standardize_brightness,
              rgb.float())
-    x = torch.floor(torch.clamp(x, 0.0, 255.0))
-    lab = step("reinhard: rgb_to_lab", rgb_to_lab, x)
+    x = reinhard._quantize_u8(x)
+    lab = step("reinhard: rgb_to_lab (uint8: the gamma table)", rgb_to_lab, x)
     lab = step("reinhard: _quantize_lab", reinhard._quantize_lab, lab)
     means, stds = step("reinhard: mean_std", mean_std, lab, (-3, -2))
 
@@ -115,7 +115,8 @@ def main() -> int:
     # Macenko, the steps of extractive.transform.
     mp = extractive.fit(target)
     mask = step("macenko: tissue_mask", lambda r: tissue_mask(r).mask, rgb)
-    od = step("macenko: rgb_to_od", rgb_to_od, rgb).reshape(B, -1, 3)
+    od = step("macenko: rgb_to_od (uint8: the log table)", rgb_to_od,
+              rgb).reshape(B, -1, 3)
     m = mask.reshape(B, -1).float()
 
     def covariance(od, m):  # extraction/macenko.py's float64 moments
@@ -129,7 +130,7 @@ def main() -> int:
         return cov / torch.clamp_min(n - 1.0, 1.0)[..., None, None]
 
     cov = step("macenko: float64 moments -> covariance", covariance, od, m)
-    _, V = step("macenko: eigh3x3", eigh3x3, cov)
+    _, V = step("macenko: eigh3x3_f64", eigh3x3_f64, cov)
     V2 = V[..., :, [2, 1]]
     V2 = V2 * torch.where(V2[..., 0:1, :] < 0.0, -1.0, 1.0)
     that = step("macenko: projection einsum (float32)",

@@ -15,6 +15,12 @@ makes:
   ``macenko_fit_planar`` (kernel K4) on the 256x256 grid subsample of a
   2048x2048 field, the tiled route's shape; both also as the kernel alone
   (``torch.profiler`` device time per call);
+* ``augment_with_matrix_planar`` (kernel K7) on the 256 tiles and
+  ``augment_with_matrix`` on the field, ``normalize_with_matrix`` (K3) on
+  the field, and ``reinhard_normalize`` (K5) on the 256 tiles, on one
+  256x256 tile and on 16 tiles of 512x512; each also as the kernel alone;
+* ``StainAugmentor("macenko").pop()`` on one 256x256 image, on the host
+  clock with a synchronize (the median of 64 pops after a warm-up);
 * the functional paths on the card: ``extractive.transform`` (Macenko) and
   ``reinhard.transform`` on the 256 tiles, the tiled route of the 2048x2048
   field (Macenko: K4 + K3; Vahadane: the functional estimate + K3), and
@@ -43,9 +49,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(1, str(ROOT))  # after this script's own directory
-from chip_smoke import REPS, device_ms, nvidia_smi, time_ms  # noqa: E402
+from chip_smoke import REPS, device_ms, nvidia_smi, pop_ms, time_ms  # noqa: E402
 from torch_compare_trees import (  # noqa: E402
-    B, FIELD, LAB_MEANS, LAB_STDS, M_TGT, MC_TGT, SEED, SIDE, VFAST, _synth)
+    ALPHA, B, BETA, FIELD, LAB_MEANS, LAB_STDS, M_TGT, MC_TGT, SEED, SIDE,
+    VFAST, _synth)
 
 GEO = dict(rotation_range=30.0, width_shift_range=0.1,
            height_shift_range=0.1, shear_range=10.0, zoom_range=0.2,
@@ -59,7 +66,9 @@ def measure(tree: Path, out: Path) -> None:
     from stainlib_tpu_torch.augmentation import geometric as AG
     from stainlib_tpu_torch.augmentation import hsv as AH
     from stainlib_tpu_torch.kernels import fused_stain as fs
+    from stainlib_tpu_torch import StainAugmentor
     from stainlib_tpu_torch.kernels import macenko_fused as mf
+    from stainlib_tpu_torch.kernels import reinhard_fused as rf
     from stainlib_tpu_torch.kernels import vahadane_fused as vf
     from stainlib_tpu_torch.normalization import extractive, reinhard
 
@@ -75,8 +84,14 @@ def measure(tree: Path, out: Path) -> None:
     M = torch.tensor(M_TGT, device=dev)
     mc = torch.tensor(MC_TGT, device=dev)
     params = extractive.ExtractiveParams(M, mc)
-    rparams = reinhard.ReinhardParams(torch.tensor(LAB_MEANS, device=dev),
-                                      torch.tensor(LAB_STDS, device=dev))
+    means = torch.tensor(LAB_MEANS, device=dev)
+    stds = torch.tensor(LAB_STDS, device=dev)
+    rparams = reinhard.ReinhardParams(means, stds)
+    planar = fs.to_planar(batch).contiguous()
+    alpha = torch.tensor(ALPHA, device=dev).repeat(B, 1)
+    beta = torch.tensor(BETA, device=dev).repeat(B, 1)
+    one = batch[:1].contiguous()
+    big = torch.from_numpy(synth.he_batch(16, 512, 512, seed=SEED + 2)).to(dev)
 
     def gen(k):
         return torch.Generator().manual_seed(SEED + k)
@@ -86,6 +101,19 @@ def measure(tree: Path, out: Path) -> None:
             lambda: vf.vahadane_normalize(batch, M, mc, **VFAST),
         f"K4 macenko_fit_planar one {SIDE}^2 subsample":
             lambda: mf.macenko_fit_planar(sub),
+        f"K7 augment_with_matrix_planar B={B} {SIDE}^2":
+            lambda: mf.augment_with_matrix_planar(planar, M, alpha, beta),
+        f"K7 augment_with_matrix one {FIELD}^2 field":
+            lambda: mf.augment_with_matrix(field[None], M, alpha[:1],
+                                           beta[:1]),
+        f"K3 normalize_with_matrix one {FIELD}^2 field":
+            lambda: mf.normalize_with_matrix(field[None], M, mc * 1.1, M, mc),
+        f"K5 reinhard_normalize B={B} {SIDE}^2":
+            lambda: rf.reinhard_normalize(batch, means, stds),
+        f"K5 reinhard_normalize B=1 {SIDE}^2":
+            lambda: rf.reinhard_normalize(one, means, stds),
+        "K5 reinhard_normalize B=16 512^2":
+            lambda: rf.reinhard_normalize(big, means, stds),
         f"functional Macenko extractive.transform B={B} {SIDE}^2":
             lambda: extractive.transform(params, batch),
         f"functional Reinhard reinhard.transform B={B} {SIDE}^2":
@@ -109,14 +137,17 @@ def measure(tree: Path, out: Path) -> None:
         cases[f"{label} B={B} {SIDE}^2"] = (
             lambda fn=fn, k=k: fn(batch, gen(50 + k)))
     res = {label: time_ms(fn) for label, fn in cases.items()}
-    for label, fn, name in (
-            (f"K2 alone B={B} {SIDE}^2 fs=2 it=8 nb=10",
-             cases[f"K2 vahadane_normalize B={B} {SIDE}^2 fs=2 it=8 nb=10"],
-             "vahadane_normalize_kernel"),
-            (f"K4 alone one {SIDE}^2 subsample",
-             cases[f"K4 macenko_fit_planar one {SIDE}^2 subsample"],
-             "macenko_fit_kernel")):
-        res[label] = device_ms(fn, name)
+    alone = {"K2": "vahadane_normalize_kernel", "K4": "macenko_fit_kernel",
+             "K7": "augment_apply_kernel", "K3": "matrix_apply_kernel",
+             "K5": "reinhard_kernel"}
+    for label, fn in list(cases.items()):
+        k, _, rest = label.partition(" ")
+        if k in alone:
+            res[f"{k} alone, {rest.partition(' ')[2]}"] = device_ms(
+                fn, alone[k])
+    aug = StainAugmentor("macenko", seed=SEED, device=dev)
+    aug.fit(batch[0].cpu().numpy())
+    res[f"StainAugmentor.pop one {SIDE}^2 image, host clock"] = pop_ms(aug)
     out.write_text(json.dumps(res))
 
 

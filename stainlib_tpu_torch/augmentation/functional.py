@@ -57,16 +57,21 @@ from stainlib_tpu_torch.ops.tissue import tissue_mask
 Range = Optional[Tuple[float, float]]
 
 
-def _uniform(generator, shape, low, high, device):
+def _uniform_host(generator, shape, low, high):
     """Uniform float32 draws ``low + u * (high - low)`` of ``shape`` from
-    ``generator`` on its own device, moved to ``device``. ``low``/``high``:
-    numbers, or sequences over the last axis."""
+    ``generator``, on its own device. ``low``/``high``: numbers, or
+    sequences over the last axis."""
     gdev = generator.device if generator is not None else torch.device("cpu")
     u = torch.rand(tuple(shape), generator=generator, device=gdev,
                    dtype=torch.float32)
     lo = torch.as_tensor(low, dtype=torch.float32, device=gdev)
     hi = torch.as_tensor(high, dtype=torch.float32, device=gdev)
-    return (lo + u * (hi - lo)).to(device)
+    return lo + u * (hi - lo)
+
+
+def _uniform(generator, shape, low, high, device):
+    """:func:`_uniform_host`'s draws, moved to ``device``."""
+    return _uniform_host(generator, shape, low, high).to(device)
 
 
 def _range_draws(generator, lead, ranges: Sequence[Range], none_value: float,
@@ -95,10 +100,11 @@ def hed_jitter_apply(rgb, sigmas, biases, cutoff_range=(0.0, 1.0)):
     ``sigmas``/``biases``: (..., 3) per-image H/E/D parameters. Patches
     whose mean (RGB/255) falls outside ``cutoff_range`` pass through
     unchanged (``augmenter.py:287-293``)."""
-    x = torch.as_tensor(rgb).to(torch.float32)
+    rgb = torch.as_tensor(rgb)
+    x = rgb.to(torch.float32)
     sigmas = torch.as_tensor(sigmas, dtype=torch.float32, device=x.device)
     biases = torch.as_tensor(biases, dtype=torch.float32, device=x.device)
-    hed = rgb_to_hed(x)
+    hed = rgb_to_hed(rgb)  # uint8 input: the logarithm is a table
     hed = hed * (1.0 + sigmas[..., None, None, :]) + biases[..., None, None, :]
     out = hed_to_rgb(hed)
     patch_mean = fdiv(_image_mean(x), 255.0)
@@ -215,9 +221,11 @@ def _stain_draws(generator, lead, sigma1, sigma2, device):
     """Per-image per-stain alpha~U(1-sigma1, 1+sigma1), then
     beta~U(-sigma2, sigma2), each (*lead, 2)."""
     shape = tuple(lead) + (2,)
-    alpha = _uniform(generator, shape, 1.0 - sigma1, 1.0 + sigma1, device)
-    beta = _uniform(generator, shape, -sigma2, sigma2, device)
-    return alpha, beta
+    alpha = _uniform_host(generator, shape, 1.0 - sigma1, 1.0 + sigma1)
+    beta = _uniform_host(generator, shape, -sigma2, sigma2)
+    # One copy to the images' device for both.
+    both = torch.stack([alpha, beta]).to(device)
+    return both[0], both[1]
 
 
 def _stain_augment_pop_apply(params: StainAugmentParams, alpha, beta,

@@ -15,7 +15,7 @@ import torch
 
 from stainlib_tpu_torch.ops.colorspace import rgb_to_od
 from stainlib_tpu_torch.ops.fdiv import f64, sum3
-from stainlib_tpu_torch.ops.linalg3 import eigh3x3
+from stainlib_tpu_torch.ops.linalg3 import eigh3x3_f64
 from stainlib_tpu_torch.ops.percentile import masked_percentile
 from stainlib_tpu_torch.ops.tissue import tissue_mask
 
@@ -53,8 +53,9 @@ def stain_matrix_macenko_from_od(od, m, angular_percentile: float = 99.0):
     cov = cov / torch.clamp_min(n - 1.0, 1.0)[..., None, None]
 
     # Top-2 eigenvectors, red component non-negative
-    # (macenko_stain_extractor.py:24-27).
-    _, V = eigh3x3(cov)
+    # (macenko_stain_extractor.py:24-27). The float64 solve: the card and
+    # the CPU then agree on every bit of V.
+    _, V = eigh3x3_f64(cov)
     V2 = V[..., :, [2, 1]]
     V2 = V2 * torch.where(V2[..., 0:1, :] < 0.0, -1.0, 1.0)
 

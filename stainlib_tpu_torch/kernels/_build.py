@@ -85,12 +85,16 @@ _ARGTYPES = {
         _i32, _i32, _i32, _i32,  # batch, n_pix, pix/ch stride
         _f32, _f32, _i32, _ptr],  # q_lo, q_hi, it_angle, stream
     "augment_apply_launch": [
-        _i32, _ptr, _ptr, _ptr, _ptr,  # device, in, out, scal, luts
-        _i32, _i32, _i32, _i32,  # batch, n_pix, pix/ch stride
-        _ptr],  # stream
+        _i32, _ptr, _ptr,  # device, in, out
+        _ptr, _i32, _ptr, _i32, _ptr, _i32,  # rows, alpha, beta: each a
+        #                                      pointer and a per-image stride
+        _ptr, _i32, _i32, _i32,  # luts, batch, n_pix, planar
+        _f32, _f32, _i32, _ptr],  # lam, y_thr, background flag, stream
     "reinhard_normalize_launch": [
-        _i32, _ptr, _ptr, _ptr, _ptr,  # device, in, out, scal, lin
-        _i32, _i32, _i32, _i32,  # batch, n_pix, pix/ch stride
+        _i32, _ptr, _ptr,  # device, in, out
+        _ptr, _i32, _ptr, _i32,  # means, stds: pointer and per-tile stride
+        _ptr, _i32, _i32, _i32,  # lin, batch, n_pix, planar
+        _i32, _i32,  # G, slice
         _f32, _f32, _f32, _ptr],  # rank_lo, frac, 1 - frac, stream
 }
 
@@ -185,8 +189,12 @@ def launch(name: str, device: torch.device, *args) -> None:
     between the device and the stream) on the device's current stream;
     raise if the launch is refused."""
     fn = getattr(load_library(), name)
-    with torch.cuda.device(device):
-        err = fn(torch.cuda.current_device(), *args,
-                 torch.cuda.current_stream().cuda_stream)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:  # the usual case: no device context to enter
+        err = fn(index, *args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(index, *args, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"{name} failed: {error_string(err)} ({err})")

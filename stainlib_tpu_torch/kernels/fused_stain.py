@@ -114,6 +114,26 @@ def _per_tile(x, width, batch, device):
         -1, width).expand(batch, width)
 
 
+def _pointer_arg(x, width: int, batch: int, device):
+    """A kernel's per-image argument passed by pointer: ``(tensor, stride)``,
+    a float32 contiguous tensor on ``device`` holding ``width`` values shared
+    by all images (stride 0) or ``width`` per image (stride ``width``). A
+    tensor that already is one is passed as it is; anything else (an array,
+    a list, a CPU tensor, another dtype or layout) is converted once."""
+    ready = (isinstance(x, torch.Tensor) and x.dtype == torch.float32
+             and x.device == device and x.is_contiguous())
+    if not ready:
+        if not isinstance(x, torch.Tensor):
+            x = torch.tensor(np.asarray(x, np.float32))
+        x = x.to(device=device, dtype=torch.float32).contiguous()
+    if x.numel() == width:
+        return x, 0
+    if x.numel() == batch * width:
+        return x, width
+    raise ValueError(f"expected {width} values, shared or for each of "
+                     f"{batch} images, got shape {tuple(x.shape)}")
+
+
 def _multi_masked_percentile(searches, n_iters=14):
     """Several ``np.percentile(values[mask], q)`` searches, batched over
     tiles, by count bisection on the rank-floor order statistic with the

@@ -48,8 +48,16 @@ Kernel source note (``csrc/macenko_fused.cu``):
   only the first pass reads device memory and the bisection rounds (three
   per reduction) are shared-memory compares; the reductions cross the
   cluster through distributed shared memory in rank order. A tile over
-  293K pixels is staged in device memory instead. K3 and K7 run
-  over (pixel chunks x images), so one large field fills the card.
+  293K pixels is staged in device memory instead. K3 runs over (pixel
+  chunks x images), so one large field fills the card. K7 runs a 1-D
+  persistent grid sized from the card over (image, chunk) work items:
+  the tables go into shared memory once per block, OD and luminance term
+  side by side (one 8-byte gather per channel); a thread takes 16 planar
+  or 8 interleaved pixels per step through 128-bit or 64-bit accesses,
+  with a scalar head and tail where an interleaved image is off the
+  vector grid; the lasso's one-stain quotients are taken only where they
+  are read; and the per-image rows, alpha and beta arrive by pointer and
+  stride (:func:`_augment_args`), so the wrapper builds no table.
 
 On a CUDA tensor the wrappers launch the kernels; on a CPU tensor they run
 the plain torch versions (``*_ref``), which mirror the TPU kernels step for
@@ -73,6 +81,7 @@ from stainlib_tpu_torch.kernels.fused_stain import (
     _multi_masked_percentile,
     _n_pix,
     _per_tile,
+    _pointer_arg,
     _reconstruct_u8,
     _scale_and_reconstruct,
     _sum64,
@@ -908,6 +917,17 @@ def augment_with_matrix_ref(rgb, stain_matrix, alpha, beta,
     return out.transpose(1, 2).reshape(B, H, W, 3)
 
 
+def _augment_args(stain_matrix, alpha, beta, batch, device):
+    """K7's per-image values as ``(tensor, stride)`` pointer arguments: the
+    2x3 stain rows (6 floats), alpha and beta (2 each), every one shared
+    (stride 0) or per image. Float32 contiguous tensors on ``device`` pass
+    through untouched, so a caller that holds them there (``StainAugmentor``
+    after ``fit``, the draws of ``stain_augment``) pays for no torch op."""
+    return (_pointer_arg(stain_matrix, 6, batch, device),
+            _pointer_arg(alpha, 2, batch, device),
+            _pointer_arg(beta, 2, batch, device))
+
+
 def _augment_launch(x, planar: bool, stain_matrix, alpha, beta,
                     luminosity_threshold: float, regularizer: float,
                     augment_background: bool):
@@ -915,17 +935,18 @@ def _augment_launch(x, planar: bool, stain_matrix, alpha, beta,
     from stainlib_tpu_torch.kernels import _build
 
     B, dev = x.shape[0], x.device
-    if B > 65535:
-        raise ValueError(f"the augment-apply kernel takes at most 65535 "
-                         f"images per call, got {B}")
     n_pix = _n_pix(x, planar)
-    scal = _augment_scalars(stain_matrix, alpha, beta, regularizer,
-                            luminosity_threshold, augment_background, B, dev)
+    if n_pix >= 2 ** 31:
+        raise ValueError(f"the augment-apply kernel takes images of under "
+                         f"2^31 pixels, got {n_pix}")
+    (rows, rows_stride), (al, al_stride), (be, be_stride) = _augment_args(
+        stain_matrix, alpha, beta, B, dev)
     out = torch.empty_like(x)
-    pix_stride, ch_stride = (1, n_pix) if planar else (3, 1)
     _build.launch("augment_apply_launch", dev, x.data_ptr(), out.data_ptr(),
-                  scal.data_ptr(), _tables(dev).data_ptr(), B, n_pix,
-                  pix_stride, ch_stride)
+                  rows.data_ptr(), rows_stride, al.data_ptr(), al_stride,
+                  be.data_ptr(), be_stride, _tables(dev).data_ptr(), B, n_pix,
+                  int(planar), regularizer,
+                  _y_threshold(luminosity_threshold), int(augment_background))
     augment_launches += 1
     return out
 

@@ -1,26 +1,36 @@
-"""Fused Reinhard normalization, one CUDA thread block per tile.
+"""Fused Reinhard normalization, one thread-block cluster per tile.
 
 Port of the JAX package's ``kernels/reinhard_fused.py:197-239``
 (``reinhard_normalize_planar``, body ``_reinhard_kernel`` at ``:140-193``):
-``ReinhardStainNormalizer.transform`` (``normalizer.py:70-94``) per tile —
+``ReinhardStainNormalizer.transform`` (``normalizer.py:70-94``) per tile:
 the 90th-percentile brightness standardization, sRGB -> CIELAB, the
 uint8-LAB quantize, per-channel mean/std, the affine transfer to the
-target, the merge-back floor, CIELAB -> sRGB — in one kernel launch.
+target, the merge-back floor, CIELAB -> sRGB, in one kernel launch.
 
 Kernel source note (``csrc/reinhard_fused.cu``):
 
 * Replaces the Pallas TPU kernel ``reinhard_normalize_planar`` /
   ``_reinhard_kernel`` in the JAX package's ``kernels/reinhard_fused.py``.
-* Bound: per-pixel arithmetic (six ``expf``/``logf`` pairs, divisions)
-  over three passes of the tile: histogram, statistics, apply.
-* Design: one 512-thread block per tile. The brightness percentile is a
-  256-bin shared-memory histogram (integer atomics, so its order
-  statistics are exact and do not depend on order) instead of the TPU
-  kernel's bisection over the integer grid, which finds the same values.
-  After the brightness floor every channel is a byte, so the sRGB
-  linearization is a 256-entry table built here with the plain version's
-  expression. The six LAB sums accumulate in double and round once. The
-  quantized LAB is recomputed in the apply pass rather than stored.
+* Bound: per-pixel arithmetic (the cube roots and gamma curves, each a
+  ``logf``/``expf`` pair, and IEEE divisions) over three passes of the
+  tile: histogram, statistics, apply.
+* Design: nearly all of that arithmetic is a function of a byte, so it
+  goes into tables. The brightness percentile is a 256-bin shared-memory
+  histogram (integer atomics, one per run of equal bytes among a thread's
+  8, so its order statistics are exact and do not depend on order)
+  instead of the TPU kernel's bisection over the integer grid, which finds
+  the same values. Once the percentile ``p`` is known, a per-tile table
+  holds the sRGB linearization of every byte after the brightness floor.
+  The statistics pass stages each pixel's packed LAB integers as three
+  bytes in the tile's own region of the output; after the six sums (in
+  double, rounded once) three per-tile 256-entry maps take a staged byte
+  to its transferred, merge-back-floored value, and the apply pass is
+  three gathers, the 3x3 and the gamma curve. Every pass moves 8 pixels
+  per thread and step as three 8-byte vectors. A tile is one cluster of
+  :func:`reinhard_plan`'s G blocks of 512 threads, so one image spreads
+  over 16 SMs and 256 tiles run one block each; the cluster meets twice
+  per tile (the 256 bins; the six sums, folded in rank order), and every
+  G gives the same bytes.
 
 On a CUDA tensor the wrappers launch the kernel; on a CPU tensor they run
 the plain torch version ``reinhard_normalize_planar_ref``, which follows
@@ -30,6 +40,7 @@ the plain torch version ``reinhard_normalize_planar_ref``, which follows
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -38,10 +49,12 @@ from stainlib_tpu_torch.kernels.fused_stain import (
     _check,
     _n_pix,
     _per_tile,
+    _pointer_arg,
     _sum64,
     from_planar,
     to_planar,
 )
+from stainlib_tpu_torch.kernels.macenko_fused import CLUSTER_SIZES
 from stainlib_tpu_torch.ops.fdiv import fdiv
 
 # Kernel launches since import (or since a caller reset it).
@@ -70,6 +83,7 @@ def _lin_table(device):
     return lin.to(device).contiguous()
 
 
+@functools.lru_cache(maxsize=None)
 def _rank(n_values: int, q: float):
     """np.percentile's rank of the q-th percentile of ``n_values`` values
     in the kernel's float32: (rank_lo, frac, 1 - frac)."""
@@ -220,19 +234,56 @@ def reinhard_normalize_ref(rgb, target_means, target_stds, **kw):
 # ---------------------------------------------------------------------------
 
 
+# The kernel's blocks hold 512 threads, two to an SM; a block takes 8 pixels
+# per thread and step, so a slice under 4096 pixels leaves threads idle.
+_BLOCKS_PER_SM = 2
+_MIN_SLICE = 4096
+
+
+class ReinhardPlan(NamedTuple):
+    g: int  # blocks per tile, the cluster size
+    slice: int  # pixels per block, a multiple of 16; g * slice >= n_pix
+
+
+def reinhard_plan(batch: int, n_pix: int, slots: int = 264,
+                  g: int | None = None) -> ReinhardPlan:
+    """The cluster size G of K5 for ``batch`` tiles of ``n_pix`` pixels on a
+    card with ``slots`` block slots (SMs x resident blocks; an H100's 132 x
+    2 by default): the largest G whose ``batch * G`` blocks still find a
+    slot each and whose slices keep 4096 pixels, so 256 tiles run one
+    block each and one image spreads over 16 SMs. ``g`` forces G (tests and
+    measurements); every G gives the same bytes."""
+    if g is None:
+        fits = [s for s in CLUSTER_SIZES
+                if batch * s <= slots and n_pix >= s * _MIN_SLICE]
+        g = fits[-1] if fits else 1
+    if g not in CLUSTER_SIZES:
+        raise ValueError(f"cluster size {g} is not one of {CLUSTER_SIZES}")
+    return ReinhardPlan(g, 16 * -(-n_pix // (16 * g)))
+
+
+@functools.lru_cache(maxsize=None)
+def _block_slots(device) -> int:
+    props = torch.cuda.get_device_properties(device)
+    return props.multi_processor_count * _BLOCKS_PER_SM
+
+
 def _launch(x, planar: bool, target_means, target_stds,
-            brightness_q: float = 90.0):
+            brightness_q: float = 90.0, g: int | None = None):
+    """K5 on CUDA tiles at :func:`reinhard_plan`'s G (``g`` forces it)."""
     global launches
     from stainlib_tpu_torch.kernels import _build
 
     B, dev = x.shape[0], x.device
     n_pix = _n_pix(x, planar)
-    scal = _reinhard_scalars(target_means, target_stds, B, dev)
+    plan = reinhard_plan(B, n_pix, _block_slots(dev), g)
+    means, means_stride = _pointer_arg(target_means, 3, B, dev)
+    stds, stds_stride = _pointer_arg(target_stds, 3, B, dev)
     out = torch.empty_like(x)
-    pix_stride, ch_stride = (1, n_pix) if planar else (3, 1)
     _build.launch("reinhard_normalize_launch", dev, x.data_ptr(),
-                  out.data_ptr(), scal.data_ptr(), _lin_table(dev).data_ptr(),
-                  B, n_pix, pix_stride, ch_stride,
+                  out.data_ptr(), means.data_ptr(), means_stride,
+                  stds.data_ptr(), stds_stride, _lin_table(dev).data_ptr(),
+                  B, n_pix, int(planar), *plan,
                   *_rank(3 * n_pix, brightness_q))
     launches += 1
     return out

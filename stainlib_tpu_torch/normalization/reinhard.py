@@ -46,8 +46,10 @@ def _quantize_lab(lab):
 
 
 def _quantize_u8(x):
-    """uint8 truncation after clipping, on a float image."""
-    return torch.floor(torch.clamp(x, 0.0, 255.0))
+    """uint8 truncation after clipping, on a float image. The result is
+    uint8, so :func:`rgb_to_lab` and :func:`tissue_mask` take their gamma
+    curve from a 256-entry table."""
+    return torch.floor(torch.clamp(x, 0.0, 255.0)).to(torch.uint8)
 
 
 def fit(target_rgb, quantize: bool = True) -> ReinhardParams:

@@ -18,10 +18,17 @@ separate elementwise multiplies and adds round the same on both. The
 transcendentals (``pow``, ``log``, ``exp``) are evaluated in float64 and
 rounded once to float32 (``ops.fdiv.f64``): CUDA's float32 ``powf``,
 ``logf`` and ``expf`` and the CPU's round differently in the last bit,
-their float64 results round to the same float32.
+their float64 results round to the same float32. Where the input is uint8,
+the per-channel transcendental (the ``log`` of :func:`rgb_to_od` and
+:func:`rgb_to_hed`, the gamma ``pow`` of :func:`rgb_to_lab` and
+:func:`lab_luminance`) has 256 possible values: a table built once by the
+float path's own expression, then gathered (:func:`_per_byte`), with the
+same bits and no float64 pass over the image.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -74,6 +81,22 @@ def _f32(x, device):
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
+@functools.lru_cache(maxsize=None)
+def _byte_table(fn, device):
+    """``fn`` over the 256 byte values as float32, built on the CPU and
+    copied, once per function and device."""
+    return fn(torch.arange(256, dtype=torch.float32)).to(device)
+
+
+def _per_byte(fn, rgb):
+    """``fn(rgb.float())`` for an elementwise ``fn``: for uint8 ``rgb`` a
+    gather from ``fn``'s 256-entry table, else ``fn`` itself."""
+    rgb = torch.as_tensor(rgb)
+    if rgb.dtype == torch.uint8:
+        return _byte_table(fn, rgb.device)[rgb.to(torch.int32)]
+    return fn(rgb.to(torch.float32))
+
+
 def _cbrt(x):
     # torch has no cbrt; every caller selects this branch only where x > 0.
     return f64(torch.pow, x, 1.0 / 3.0)
@@ -101,13 +124,17 @@ def _lab_f_inv(ft):
     return torch.where(t3 > _LAB_DELTA, t3, fdiv(ft - 16.0 / 116.0, 7.787))
 
 
+def _linear_of_byte_scale(x):
+    """A channel in [0,255] -> linear [0,1]."""
+    return _srgb_gamma_expand(fdiv(x, 255.0))
+
+
 def rgb_to_lab(rgb):
     """sRGB in [0,255] -> CIELAB (L in [0,100]); OpenCV's 8-bit
     ``COLOR_RGB2LAB`` (``stain_utils.py:41``) with its packing undone."""
-    c = fdiv(torch.as_tensor(rgb).to(torch.float32), 255.0)
-    lin = _srgb_gamma_expand(c)
+    lin = _per_byte(_linear_of_byte_scale, rgb)
     xyz = _contract(lin, _RGB2XYZ.T)
-    xyz = xyz / _f32(_WHITE, c.device)
+    xyz = xyz / _f32(_WHITE, lin.device)
     fx, fy, fz = xyz[..., 0], xyz[..., 1], xyz[..., 2]
     L = torch.where(fy > _LAB_DELTA, 116.0 * _cbrt(fy) - 16.0,
                     _LAB_KAPPA * fy)
@@ -138,18 +165,21 @@ def lab_to_rgb(lab):
 def lab_luminance(rgb):
     """L channel of CIELAB in [0,100]; the reference's tissue-mask
     statistic (``stain_utils.py:41-43``: uint8 L / 255 == L / 100)."""
-    c = fdiv(torch.as_tensor(rgb).to(torch.float32), 255.0)
-    lin = _srgb_gamma_expand(c)
+    lin = _per_byte(_linear_of_byte_scale, rgb)
     Y = _contract(lin, _RGB2XYZ.T[:, 1])
     return torch.where(Y > _LAB_DELTA, 116.0 * _cbrt(Y) - 16.0,
                        _LAB_KAPPA * Y)
 
 
+def _od_of_channel(x):
+    return torch.clamp_min(
+        -f64(torch.log, fdiv(torch.clamp_min(x, 1.0), 255.0)), 1e-6)
+
+
 def rgb_to_od(rgb):
     """RGB [0,255] -> optical density ``max(-log(max(I,1)/255), 1e-6)``
     (``convert_RGB_to_OD``, ``stain_utils.py:101-112``)."""
-    I = torch.clamp_min(torch.as_tensor(rgb).to(torch.float32), 1.0)
-    return torch.clamp_min(-f64(torch.log, fdiv(I, 255.0)), 1e-6)
+    return _per_byte(_od_of_channel, rgb)
 
 
 def od_to_rgb(od):
@@ -160,13 +190,16 @@ def od_to_rgb(od):
     return 255.0 * f64(torch.exp, -od)
 
 
+def _hed_log_of_channel(x):
+    c = torch.clamp_min(fdiv(x, 255.0), 1e-6)
+    return fdiv(f64(torch.log, c), _LOG_ADJUST)
+
+
 def rgb_to_hed(rgb):
     """RGB [0,255] -> HED stain concentrations, skimage ``rgb2hed``
     (``augmenter.py:295``): ``(log(max(rgb/255, 1e-6)) / log(1e-6)) @
     hed_from_rgb``."""
-    c = torch.clamp_min(fdiv(torch.as_tensor(rgb).to(torch.float32), 255.0),
-                        1e-6)
-    return _contract(fdiv(f64(torch.log, c), _LOG_ADJUST), _HED_FROM_RGB)
+    return _contract(_per_byte(_hed_log_of_channel, rgb), _HED_FROM_RGB)
 
 
 def hed_to_rgb(hed):

@@ -37,8 +37,21 @@ def eigh3x3(A, eps: float = 1e-12):
     """Eigenvalues (ascending, (..., 3)) and unit eigenvectors (columns of
     (..., 3, 3)) of symmetric ``A`` — ``np.linalg.eigh``'s convention, so
     Macenko's ``V[:, [2, 1]]`` selection carries over. Column signs are
-    fixed deterministically (largest-|.| component positive)."""
-    A = torch.as_tensor(A).to(torch.float32)
+    fixed deterministically (largest-|.| component positive). Float32, as
+    the JAX package's."""
+    return _eigh3x3(torch.as_tensor(A).to(torch.float32), eps)
+
+
+def eigh3x3_f64(A, eps: float = 1e-12):
+    """:func:`eigh3x3` evaluated in float64 and rounded once to float32.
+    The float32 solve's ``arccos``, ``cos`` and short sums round differently
+    on the card and on the CPU; their float64 results round to the same
+    float32, so a caller that needs both devices to agree takes this one."""
+    w, V = _eigh3x3(torch.as_tensor(A).to(torch.float64), eps)
+    return w.to(torch.float32), V.to(torch.float32)
+
+
+def _eigh3x3(A, eps):
     eye = torch.eye(3, dtype=A.dtype, device=A.device)
     scale = torch.clamp_min(A.abs().amax((-2, -1), keepdim=True), eps)
     As = A / scale

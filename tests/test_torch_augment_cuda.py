@@ -69,6 +69,94 @@ def test_k6_k7_match_plain_versions(cuda, side, batch, background):
                                                       before[1] + 2)
 
 
+def _rows(n, seed, device):
+    """n plausible H&E stain matrices, (n, 2, 3), rows of unit length."""
+    rng = np.random.default_rng(seed)
+    base = np.array([[0.56, 0.72, 0.41], [0.22, 0.80, 0.56]], np.float32)
+    m = base + rng.uniform(-0.05, 0.05, (n, 2, 3)).astype(np.float32)
+    m /= np.linalg.norm(m, axis=-1, keepdims=True)
+    return torch.from_numpy(m).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("background", [False, True])
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("planar", [False, True])
+@pytest.mark.parametrize("batch", [1, 5])
+def test_k7_equals_plain_version(cuda, batch, planar, shared, background):
+    """K7 byte for byte, both layouts, shared and per-tile arguments, the
+    background flag on and off."""
+    rgb = torch.from_numpy(he_batch(batch, 128, 128, seed=120)).to(cuda)
+    x = fs.to_planar(rgb).contiguous() if planar else rgb
+    n = 1 if shared else batch
+    M = _rows(n, 121, cuda)
+    alpha, beta = _draws(n, 122, cuda)
+    if shared:
+        M, alpha, beta = M[0], alpha[0], beta[0]
+    fn, ref = ((mf.augment_with_matrix_planar,
+                mf.augment_with_matrix_planar_ref) if planar
+               else (mf.augment_with_matrix, mf.augment_with_matrix_ref))
+    kw = dict(augment_background=background)
+    assert torch.equal(fn(x, M, alpha, beta, **kw),
+                       ref(x, M, alpha, beta, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 5, 7), (2, 33, 31), (1, 1, 1),
+                                   (4, 19, 64), (1, 300, 217)])
+@pytest.mark.parametrize("background", [False, True])
+def test_k7_interleaved_odd_sizes(cuda, shape, background):
+    """Interleaved images whose H*W is no multiple of 16 and whose bases
+    (b * 3 * H * W) are not 16-byte aligned: the scalar head and tail."""
+    b, h, w = shape
+    rng = np.random.default_rng(123)
+    rgb = torch.from_numpy(rng.integers(0, 256, (b, h, w, 3),
+                                        dtype=np.uint8)).to(cuda)
+    M = _rows(b, 124, cuda)
+    alpha, beta = _draws(b, 125, cuda)
+    kw = dict(augment_background=background)
+    got = mf.augment_with_matrix(rgb, M, alpha, beta, **kw)
+    assert torch.equal(got, mf.augment_with_matrix_ref(rgb, M, alpha, beta,
+                                                       **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planar", [False, True])
+@pytest.mark.parametrize("offset", [1, 7, 16])
+def test_k7_takes_unaligned_views(cuda, planar, offset):
+    """A contiguous view that starts ``offset`` bytes into its buffer."""
+    n = 2 * 3 * 128 * 128
+    rng = np.random.default_rng(126)
+    buf = torch.from_numpy(rng.integers(0, 256, n + 32,
+                                        dtype=np.uint8)).to(cuda)
+    shape = (2, 3, 128, 128) if planar else (2, 128, 128, 3)
+    x = buf[offset:offset + n].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 == offset % 16
+    M = _rows(2, 127, cuda)
+    alpha, beta = _draws(2, 128, cuda)
+    fn, ref = ((mf.augment_with_matrix_planar,
+                mf.augment_with_matrix_planar_ref) if planar
+               else (mf.augment_with_matrix, mf.augment_with_matrix_ref))
+    assert torch.equal(fn(x, M, alpha, beta), ref(x, M, alpha, beta))
+
+
+@pytest.mark.cuda
+def test_k7_argument_forms_and_no_copy(cuda):
+    """numpy, list and CPU-tensor arguments give the bytes of the CUDA
+    tensors; ready float32 tensors reach the kernel by their own pointer."""
+    rgb = torch.from_numpy(he_batch(3, 128, 128, seed=129)).to(cuda)
+    M = _rows(3, 130, cuda)
+    alpha, beta = _draws(3, 131, cuda)
+    want = mf.augment_with_matrix(rgb, M, alpha, beta)
+    for conv in (lambda t: t.cpu().numpy(), lambda t: t.cpu().tolist(),
+                 lambda t: t.cpu(), lambda t: t.double()):
+        assert torch.equal(mf.augment_with_matrix(
+            rgb, conv(M), conv(alpha), conv(beta)), want)
+    for t, (arg, stride) in zip((M, alpha, beta),
+                                mf._augment_args(M, alpha, beta, 3, cuda)):
+        assert arg.data_ptr() == t.data_ptr() and stride == t[0].numel()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("method", ["macenko", "vahadane"])
 def test_stain_augment_routes_and_budget(cuda, method):

@@ -160,3 +160,56 @@ def test_wrappers_on_cpu_tensors():
         mf.macenko_augment(rgb[:, :, :3], alpha, beta)  # 96 px: not lanes
     with pytest.raises(ValueError):
         mf.augment_with_matrix_planar(rgb, M, alpha, beta)
+
+
+def test_augment_args_strides_and_values():
+    """K7's pointer arguments: shared values get stride 0, per-tile values
+    their width; numpy, list and CPU-tensor forms convert to the same
+    float32 values; a ready float32 tensor is passed without a copy."""
+    cpu = torch.device("cpu")
+    M = np.asarray([[0.56, 0.72, 0.41], [0.22, 0.80, 0.56]], np.float32)
+    alpha, beta = _draws(4, 7)
+    per_tile = np.stack([M, M * 0.9, M * 1.1, M])
+    for rows, a, b, want in ((M, alpha[0], beta[0], (0, 0, 0)),
+                             (per_tile, alpha, beta, (6, 2, 2)),
+                             (M, alpha, beta[0], (0, 2, 0))):
+        forms = [(rows, a, b), (rows.tolist(), a.tolist(), b.tolist()),
+                 tuple(torch.from_numpy(v) for v in (rows, a, b)),
+                 tuple(torch.from_numpy(v).double() for v in (rows, a, b))]
+        for form in forms:
+            args = mf._augment_args(*form, 4, cpu)
+            assert tuple(stride for _, stride in args) == want
+            for (t, _), v in zip(args, (rows, a, b)):
+                assert t.dtype == torch.float32 and t.is_contiguous()
+                np.testing.assert_array_equal(t.numpy().ravel(), v.ravel())
+    ready = [torch.from_numpy(v) for v in (per_tile, alpha, beta)]
+    for (t, _), r in zip(mf._augment_args(*ready, 4, cpu), ready):
+        assert t.data_ptr() == r.data_ptr()
+    # A view that is not contiguous is laid out once; B=1 is "shared".
+    spread = torch.from_numpy(alpha[0]).expand(4, 2)
+    t, stride = mf._augment_args(M, spread, beta, 4, cpu)[1]
+    assert stride == 2 and t.is_contiguous() and torch.equal(t, spread)
+    assert [st for _, st in mf._augment_args(M, alpha[:1], beta[:1], 1,
+                                             cpu)] == [0, 0, 0]
+    for bad in (alpha[:3], alpha.ravel()[:5]):
+        with pytest.raises(ValueError, match="expected 2 values"):
+            mf._augment_args(M, bad, beta, 4, cpu)
+
+
+@pytest.mark.parametrize("planar", [False, True])
+def test_k7_entry_same_bytes_for_every_argument_form(planar):
+    batch = torch.from_numpy(he_batch(2, 32, 64, seed=214))
+    x = mf.to_planar(batch).contiguous() if planar else batch
+    fn = mf.augment_with_matrix_planar if planar else mf.augment_with_matrix
+    M = np.array(jax_mac(jnp.asarray(batch.numpy())))
+    alpha, beta = _draws(2, 8)
+    want = fn(x, torch.from_numpy(M), torch.from_numpy(alpha),
+              torch.from_numpy(beta))
+    for conv in (np.asarray, lambda v: v.tolist(),
+                 lambda v: torch.from_numpy(v).double()):
+        assert torch.equal(fn(x, conv(M), conv(alpha), conv(beta)), want)
+    # Shared values equal the same values repeated per tile.
+    shared = fn(x, M[0], alpha[0], beta[0])
+    assert torch.equal(shared, fn(x, np.stack([M[0]] * 2),
+                                  np.stack([alpha[0]] * 2),
+                                  np.stack([beta[0]] * 2)))

@@ -141,3 +141,59 @@ def test_nonneg_lasso_k2():
                                      torch.from_numpy(M)).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
     assert (got >= 0).all() and (got == 0).any()
+
+
+@pytest.mark.parametrize("name", ["rgb_to_od", "rgb_to_hed", "rgb_to_lab",
+                                  "lab_luminance"])
+def test_uint8_table_path_equals_float_path_on_every_byte(name):
+    """uint8 input takes each channel's transcendental from a 256-entry
+    table; it must give the bits of the float64-evaluated float path on all
+    256 values of every channel."""
+    fn = getattr(T["colorspace"], name)
+    v = torch.arange(256, dtype=torch.uint8)
+    rng = np.random.default_rng(5)
+    img = torch.stack([v, v.flip(0), torch.from_numpy(
+        rng.permutation(256).astype(np.uint8))], dim=-1)[None]  # (1, 256, 3)
+    gray = torch.stack([v, v, v], dim=-1)[None]
+    for x in (img, gray, torch.from_numpy(_images()[1])):
+        assert torch.equal(fn(x), fn(x.to(torch.float32)))
+
+
+@pytest.mark.parametrize("kind", ["random", "near_degenerate"])
+def test_eigh3x3_f64_against_numpy(kind):
+    """The extractor's float64 solve against ``numpy.linalg.eigh``:
+    eigenvalues to 1e-6 of the largest, eigenvectors up to sign where the
+    eigenvalue is separated; float32 outputs."""
+    rng = np.random.default_rng(11)
+    a = rng.normal(size=(64, 200, 3)) * np.array([1.0, 0.5, 0.1])
+    if kind == "near_degenerate":  # two eigenvalues 1e-4 apart (relative)
+        q, _ = np.linalg.qr(rng.normal(size=(64, 3, 3)))
+        lam = np.stack([np.full(64, 0.1), np.full(64, 1.0),
+                        np.full(64, 1.0001)], -1)
+        cov = np.einsum("bij,bj,bkj->bik", q, lam, q)
+    else:
+        cov = np.einsum("bni,bnj->bij", a, a) / 199.0
+    cov = cov.astype(np.float32)
+    cov = (cov + cov.transpose(0, 2, 1)) / 2  # exactly symmetric in float32
+    w, V = T["linalg3"].eigh3x3_f64(torch.from_numpy(cov))
+    assert w.dtype == torch.float32 and V.dtype == torch.float32
+    w_np, V_np = np.linalg.eigh(cov.astype(np.float64))
+    scale = np.abs(w_np).max(-1, keepdims=True)
+    np.testing.assert_allclose(w.numpy(), w_np, rtol=0,
+                               atol=1e-6 * float(scale.max()))
+    cols = (0,) if kind == "near_degenerate" else (0, 1, 2)
+    for k in cols:
+        dot = np.abs(np.einsum("bi,bi->b", V.numpy()[..., k], V_np[..., k]))
+        np.testing.assert_allclose(dot, 1.0, atol=1e-5)
+    # The plane of the two close eigenvalues is the complement of column 0.
+    G = V.numpy().astype(np.float64)
+    np.testing.assert_allclose(np.einsum("bij,bik->bjk", G, G),
+                               np.broadcast_to(np.eye(3), (64, 3, 3)),
+                               atol=2e-3 if kind == "near_degenerate"
+                               else 1e-5)
+    # The float32 solve, which K10's glue keeps, stays as it was: it cannot
+    # split eigenvalues 1e-4 apart, the float64 one can.
+    w32, _ = T["linalg3"].eigh3x3(torch.from_numpy(cov))
+    err32 = float(np.abs(w32.numpy() - w_np).max())
+    assert err32 < 1e-5 * float(scale.max()) or kind == "near_degenerate"
+    assert (err32 > 2e-5) == (kind == "near_degenerate")

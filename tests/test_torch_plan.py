@@ -2,13 +2,15 @@
 (Macenko fit): for every estimation sample the routes admit, a cluster
 size of at most 16 blocks, shared memory within one block's 227 KB, and
 slices that together cover the sample; larger samples staged in device
-memory. Pure Python: no card needed.
+memory. And the plan of K5 (Reinhard), which weighs the batch against the
+card's block slots. Pure Python: no card needed.
 """
 
 import pytest
 import torch
 
 from stainlib_tpu_torch.kernels import macenko_fused as mf
+from stainlib_tpu_torch.kernels import reinhard_fused as rf
 
 BLOCK_BYTES = 227 * 1024  # shared memory one block of an H100 can take
 SM_BYTES = 228 * 1024  # shared memory of one SM
@@ -97,3 +99,35 @@ def test_plan_stages_large_samples_in_device_memory(kernel):
     plan = mf.cluster_plan(limit, kernel)
     assert plan.g == 16 and plan.smem == 12 * plan.slice
     assert mf.stage_scratch(plan, 3, "cpu") is None
+
+
+@pytest.mark.parametrize("batch,side,g", [
+    (1, 256, 16), (1, 512, 16), (16, 256, 16), (16, 512, 16),
+    (256, 256, 1), (256, 512, 1), (1024, 256, 1), (1024, 512, 1)])
+def test_k5_plan_weighs_batch_against_block_slots(batch, side, g):
+    """One image spreads over 16 blocks, 16 tiles of 512^2 over 256, and a
+    batch that fills the card's 264 block slots runs one block per tile."""
+    n = side * side
+    plan = rf.reinhard_plan(batch, n)
+    assert plan.g == g
+    assert plan.slice % 16 == 0 and plan.g * plan.slice >= n
+    assert (plan.g - 1) * plan.slice < n  # no block left without pixels
+    assert batch * plan.g <= 264 or plan.g == 1
+
+
+def test_k5_plan_between_and_forced():
+    """Between the extremes G halves as the batch doubles; a slice keeps
+    4096 pixels (8 per thread of a block); ``g`` forces G."""
+    n = 256 * 256
+    assert [rf.reinhard_plan(b, n).g for b in (16, 17, 33, 66, 132, 133)] == [
+        16, 8, 8, 4, 2, 1]
+    assert rf.reinhard_plan(1, 128 * 128).g == 4
+    assert rf.reinhard_plan(1, 32 * 32) == (1, 1024)
+    assert rf.reinhard_plan(8, n, slots=64).g == 8  # a smaller card
+    for g in rf.CLUSTER_SIZES:
+        plan = rf.reinhard_plan(256, n, g=g)
+        assert plan == (g, n // g)
+    assert rf.reinhard_plan(1, 1024 + 128, g=16).slice == 80
+    for g in (0, 3, 32):
+        with pytest.raises(ValueError, match="cluster size"):
+            rf.reinhard_plan(1, n, g=g)

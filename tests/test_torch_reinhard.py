@@ -210,3 +210,83 @@ def test_dropin_class_matches_jax_and_raise_contract():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tsl.ReinhardStainNormalizer()
+
+
+def _apply_tables(x, scal, brightness_q=90.0):
+    """K5's data flow on the card, in torch: after the percentile a
+    per-tile table of the linearized brightness-floored byte; the packed
+    LAB integers staged as three bytes per pixel, the sums taken from their
+    unpacked floats; after the sums three per-tile 256-entry maps from a
+    staged byte to (fy, y), A/500 and Bv/200; the apply pass gathers from
+    them. Each table entry is the plain version's expression on the plain
+    version's operands, so the bytes must equal ``rf._apply_ref``'s."""
+    fdiv = rf.fdiv
+    c = x.to(torch.float32)
+    B, _, N = c.shape
+    n = torch.tensor(float(N), dtype=torch.float32)
+    p = torch.clamp_min(rf._percentile_u8(c, brightness_q), 1e-6)
+    v = torch.arange(256, dtype=torch.float32)
+    floor = torch.floor(torch.clamp(v[None] * 255.0 / p[:, None], 0.0, 255.0))
+    blin = rf._lin_table(x.device)[floor.to(torch.long)]  # (B, 256)
+    l = torch.gather(blin[:, None].expand(B, 3, 256), 2, x.to(torch.long))
+    L, a, b = rf._rgb_to_lab_planes([l[:, 0], l[:, 1], l[:, 2]])
+    staged = torch.stack([
+        torch.clamp(torch.round(L * 2.55), 0.0, 255.0),
+        torch.clamp(torch.round(a + 128.0), 0.0, 255.0),
+        torch.clamp(torch.round(b + 128.0), 0.0, 255.0)], 1).to(torch.uint8)
+    unpack = [fdiv(v, 2.55), v - 128.0, v - 128.0]  # byte -> quantized LAB
+    maps = []
+    for k, (pack, shift) in enumerate(((2.55, 0.0), (1.0, 128.0),
+                                       (1.0, 128.0))):
+        ch = unpack[k][staged[:, k].to(torch.long)]
+        mu = rf._sum64(ch) / n
+        sd = torch.sqrt(torch.clamp_min(rf._sum64(ch * ch) / n - mu * mu,
+                                        1e-12))
+        t = ((unpack[k][None] - mu[:, None])
+             * (scal[:, 3 + k] / sd)[:, None] + scal[:, k, None])
+        t = torch.floor(torch.clamp(t * pack + shift, 0.0, 255.0))
+        maps.append(fdiv(t, 2.55) if k == 0 else t - 128.0)  # (B, 256)
+    Lm = maps[0]
+    fy_map = fdiv(Lm + 16.0, 116.0)
+    y_map = torch.where(Lm > 903.3 * rf._DELTA, fy_map * fy_map * fy_map,
+                        fdiv(Lm, 903.3))
+    a_map, b_map = fdiv(maps[1], 500.0), fdiv(maps[2], 200.0)
+
+    def take(table, k):
+        return torch.gather(table, 1, staged[:, k].to(torch.long))
+
+    fy, y = take(fy_map, 0), take(y_map, 0)
+    fx, fz = fy + take(a_map, 1), fy - take(b_map, 2)
+
+    def f_inv(ft):
+        t3 = ft * ft * ft
+        return torch.where(t3 > rf._DELTA, t3, fdiv(ft - 16.0 / 116.0, 7.787))
+
+    xx, zz = f_inv(fx) * rf._WHITE[0], f_inv(fz) * rf._WHITE[2]
+    inv24 = float(np.float32(1.0 / 2.4))
+
+    def compress(c):
+        c = torch.clamp_min(c, 0.0)
+        srgb = torch.where(
+            c <= 0.0031308, c * 12.92,
+            1.055 * torch.exp(torch.log(torch.clamp_min(c, 1e-12)) * inv24)
+            - 0.055)
+        return torch.clamp(srgb, 0.0, 1.0) * 255.0
+
+    rgb = [compress(r[0] * xx + r[1] * y + r[2] * zz) for r in rf._XYZ2RGB]
+    return torch.stack([torch.clamp(torch.round(v), 0.0, 255.0).to(
+        torch.uint8) for v in rgb], dim=1)
+
+
+@pytest.mark.parametrize("side", [64, 128])
+@pytest.mark.parametrize("seed", [60, 61, 62])
+def test_k5_table_data_flow_equals_plain_version(side, seed):
+    """Byte for byte on H&E tiles, an all-white tile and a dark tile."""
+    _, tp = _params(44)
+    tiles = he_batch(4, side, side, seed=seed)
+    tiles[2] = 255
+    tiles[3] = np.random.default_rng(seed).integers(0, 40, tiles[3].shape,
+                                                    dtype=np.uint8)
+    x = fs.to_planar(torch.from_numpy(tiles)).reshape(4, 3, -1)
+    scal = rf._reinhard_scalars(tp.means, tp.stds, 4, x.device)
+    assert torch.equal(_apply_tables(x, scal), rf._apply_ref(x, scal, 90.0))

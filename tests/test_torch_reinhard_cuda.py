@@ -58,6 +58,52 @@ def test_k5_matches_plain_version(cuda, side, batch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("side,batch", [(256, 1), (256, 3), (512, 1),
+                                        (512, 2), (64, 2)])
+@pytest.mark.parametrize("planar", [False, True])
+def test_k5_same_bytes_at_every_cluster_size(cuda, side, batch, planar):
+    """Every cluster size the plan can choose, and G=1, give the plain
+    version's bytes, on an H&E tile, a white one and a dark one."""
+    means, stds = _params(cuda)
+    tiles = he_batch(batch, side, side, seed=114)
+    if batch > 1:
+        tiles[-1] = 255
+    if batch > 2:
+        tiles[-2] = np.random.default_rng(115).integers(
+            0, 40, tiles[-2].shape, dtype=np.uint8)
+    rgb = torch.from_numpy(tiles).to(cuda)
+    x = fs.to_planar(rgb).contiguous() if planar else rgb
+    want = (rf.reinhard_normalize_planar_ref if planar
+            else rf.reinhard_normalize_ref)(x, means, stds)
+    for g in rf.CLUSTER_SIZES:
+        got = rf._launch(x, planar, means, stds, g=g)
+        assert torch.equal(got, want), g
+    planned = (rf.reinhard_normalize_planar if planar
+               else rf.reinhard_normalize)(x, means, stds)
+    assert torch.equal(planned, want)
+
+
+@pytest.mark.cuda
+def test_k5_per_tile_targets_and_unaligned_views(cuda):
+    """Per-tile target statistics by pointer; a contiguous view that starts
+    at an odd byte of its buffer."""
+    means, stds = _params(cuda)
+    rgb = torch.from_numpy(he_batch(3, 128, 128, seed=116)).to(cuda)
+    scale = torch.tensor([[1.0], [0.9], [1.1]], device=cuda)
+    pm, ps = means[None] * scale, stds[None] * scale
+    got = rf.reinhard_normalize(rgb, pm, ps)
+    assert torch.equal(got, rf.reinhard_normalize_ref(rgb, pm, ps))
+    assert torch.equal(got[0], rf.reinhard_normalize(rgb[:1], means, stds)[0])
+    assert torch.equal(rf.reinhard_normalize(rgb, pm.cpu().numpy(),
+                                             ps.cpu().tolist()), got)
+    buf = torch.zeros(rgb.numel() + 16, dtype=torch.uint8, device=cuda)
+    view = buf[3:3 + rgb.numel()].view(rgb.shape)
+    view.copy_(rgb)
+    assert view.data_ptr() % 16 == 3
+    assert torch.equal(rf.reinhard_normalize(view, pm, ps), got)
+
+
+@pytest.mark.cuda
 def test_k5_deterministic_and_per_tile(cuda):
     """Identical bytes on a second run; a tile's output does not depend on
     its batch neighbours; a white tile and a one-value tile stay finite."""
