@@ -32,9 +32,10 @@ It builds the hand-written CUDA kernels from the sources in the checkout,
 counts each kernel's launches over its path, holds every kernel against
 its plain PyTorch version and against the functional path, checks that two
 runs give identical bytes, and times each kernel against its plain version
-with CUDA events. The thread-block-cluster kernels K2, K4 and K5 print their
-cluster plan (``scripts/torch_cluster_sweep.py`` times K2 and K4 at every
-cluster size; K5 is held to the same bytes at every cluster size here).
+with CUDA events. The thread-block-cluster kernels K1, K2, K4, K5 and K8
+print their cluster plan (``scripts/torch_cluster_sweep.py`` times K1, K2,
+K4 and K8 at every cluster size; K1, K5 and K8 are held to the same bytes
+at every cluster size here).
 ``StainAugmentor.pop`` is timed on the host clock, and one pop's device
 work is listed from a profiler trace. Where ``.runs/parent`` holds a ``git archive`` of the
 parent commit, ``scripts/torch_time_trees.py`` times both trees' public
@@ -135,29 +136,39 @@ def time_ms(fn, reps=REPS):
 
 
 def device_ms(fn, kernel: str, reps=REPS):
-    """Device time per call of the CUDA kernels whose name contains
+    """Device time per launch of the CUDA kernels whose name contains
     ``kernel``, from ``torch.profiler`` over ``reps`` calls after a warm-up:
     the kernel alone, without the wrapper's host work. Before each call a
     128 MB write evicts the 50 MB L2, so the kernel reads its input from
-    device memory, as a caller with fresh tiles would. None where the
-    profiler reports no device time."""
+    device memory, as a caller with fresh tiles would. The time is over the
+    launches the profiler recorded, which is the time per call where ``fn``
+    launches the kernel once; a count other than ``reps`` (a short window
+    can lose some, an ``fn`` can launch several) is logged. None where two
+    traces in a row report no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     fn()
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                flush.fill_(0)
-                fn()
-            torch.cuda.synchronize()
-    except RuntimeError as err:  # no CUPTI: say so, time with events only
-        log("profiler", f"unavailable: {err}")
-        return None
-    us = sum(getattr(e, "device_time_total", 0.0)
-             for e in prof.key_averages() if kernel in e.key)
-    return us / reps / 1e3 if us > 0 else None
+    for _ in range(2):  # a trace now and then comes back without the kernel
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    flush.fill_(0)
+                    fn()
+                torch.cuda.synchronize()
+        except RuntimeError as err:  # no CUPTI: say so, time with events only
+            log("profiler", f"unavailable: {err}")
+            return None
+        found = [e for e in prof.key_averages() if kernel in e.key]
+        us = sum(getattr(e, "device_time_total", 0.0) for e in found)
+        if us > 0:
+            count = sum(e.count for e in found)
+            if count != reps:
+                log("profiler", f"{kernel}: {count} launches recorded in "
+                                f"{reps} calls; the time is per launch")
+            return us / count / 1e3
+    return None
 
 
 def fmt_ms(ms) -> str:
@@ -544,9 +555,11 @@ def augment_phases(dev, smi, batch, batch_np, planar) -> list:
     ]
 
 
-def plan_text(kernel: str, side_or_n: int, fit_stride: int | None = None):
-    """The cluster plan of K2 (a ``side``^2 tile at ``fit_stride``) or K4
-    (an ``n``-pixel tile), as a phrase."""
+def plan_text(kernel: str, side_or_n: int, fit_stride: int | None = None,
+              batch: int = 1):
+    """The cluster plan of K1, K2 or K8 (a ``side``^2 tile at
+    ``fit_stride``; K1 and K8 in a batch of ``batch``) or K4 (an
+    ``n``-pixel tile), as a phrase."""
     from stainlib_tpu_torch.kernels import macenko_fused as mf
 
     if fit_stride is None:
@@ -554,7 +567,9 @@ def plan_text(kernel: str, side_or_n: int, fit_stride: int | None = None):
     else:
         nblk, blk, _ = mf._sample_args(side_or_n * side_or_n, fit_stride)
         n, shape = nblk * blk, f"{side_or_n}^2 fs={fit_stride}"
-    p = mf.cluster_plan(n, kernel)
+    if kernel in ("K1", "K8"):
+        shape = f"B={batch} {shape}"
+    p = mf.cluster_plan(n, kernel, batch=batch, sms=mf.sm_count(0))
     where = (f"{p.smem} B of dynamic shared memory per block" if p.smem
              else "staged in device memory")
     return (f"{kernel} plan at {shape} ({n} sample px): G={p.g} blocks of "
@@ -575,7 +590,8 @@ def k5_plan_text(x) -> str:
 def parent_phases() -> None:
     """Phases 39-40, where ``.runs/parent`` holds a ``git archive`` of the
     parent commit: ``scripts/torch_time_trees.py`` times both trees' public
-    entry points (K2, K4, the functional paths, the augmenters) in turns,
+    entry points (the kernels' entries, the functional paths, the
+    augmenters) in turns,
     and ``scripts/torch_compare_trees.py`` compares all ten kernels'
     outputs."""
     root = Path(__file__).resolve().parent
@@ -720,6 +736,24 @@ def run(dev) -> int:
     log(7, f"K1 vs plain B={B_LARGE} {SIDE_LARGE}^2 fs=2: max={mx7} u8, "
            f"share differing={share7:.3e}")
 
+    one256 = batch[:1].contiguous()
+    k1_shapes = ((f"B={B} {SIDE}^2", batch), (f"B={B_LARGE} {SIDE_LARGE}^2",
+                                              big512), (f"B=1 {SIDE}^2", one256))
+    for label, x in k1_shapes:
+        g1 = mf._launch(x, False, params.stain_matrix_target,
+                        params.max_c_target, g=1, **FAST)
+        for g in mf.CLUSTER_SIZES[1:]:
+            assert torch.equal(mf._launch(
+                x, False, params.stain_matrix_target, params.max_c_target,
+                g=g, **FAST), g1), (label, g)
+        assert torch.equal(mf.macenko_normalize(
+            x, params.stain_matrix_target, params.max_c_target, **FAST),
+            g1), label
+        log(7, f"K1 {label} fs=2: clusters of {list(mf.CLUSTER_SIZES)} blocks "
+               f"per tile and the plan's each byte-identical to G=1; "
+               f"{plan_text('K1', x.shape[1], 2, x.shape[0])}")
+    assert torch.equal(g1[0], out[0]), "K1 on one tile differs from the batch"
+
     # 8. Timing at the main path's shape, kernel and plain in turns.
     (ka, kb), (pa, pb) = time_pair(
         lambda: mf.macenko_normalize(batch, params.stain_matrix_target,
@@ -730,6 +764,15 @@ def run(dev) -> int:
            f"(plain, kernel, kernel, plain): kernel {ka:.3f}/{kb:.3f} ms = "
            f"{B / min(ka, kb) * 1e3:.0f} tiles/s; plain {pa:.3f}/{pb:.3f} "
            f"ms = {B / min(pa, pb) * 1e3:.0f} tiles/s; card '{smi}'")
+    for label, x in k1_shapes:
+        def k1_call(x=x):
+            return mf.macenko_normalize(x, params.stain_matrix_target,
+                                        params.max_c_target, **FAST)
+        log(8, f"K1 {label} fs=2 nb=10: the kernel alone (torch.profiler "
+               f"device time per call, {REPS} calls) "
+               f"{fmt_ms(device_ms(k1_call, 'macenko_apply_kernel'))}; by "
+               f"events {time_ms(k1_call):.4f} ms (median of {REPS}); card "
+               f"'{smi}'")
     kernels.append(dict(
         name="macenko_normalize_planar", route="cuda",
         source="stainlib_tpu_torch/kernels/csrc/macenko_fused.cu",
@@ -812,6 +855,21 @@ def run(dev) -> int:
             f"1e-5), max |M - functional stain_matrix_vahadane| = "
             f"{e_func:.3e} (atol 2e-3)")
 
+    k8_shapes = ((f"B={B} {SIDE}^2", planar),
+                 (f"B={B_LARGE} {SIDE_LARGE}^2",
+                  fs.to_planar(big512).contiguous()),
+                 (f"B=1 {SIDE}^2", planar[:1].contiguous()))
+    for label, pl in k8_shapes:
+        g1 = vf._dict_launch(pl, g=1)
+        assert torch.equal(g1, vf._dict_plane_ref(pl)), label
+        for g in mf.CLUSTER_SIZES[1:]:
+            assert torch.equal(vf._dict_launch(pl, g=g), g1), (label, g)
+        assert torch.equal(vf._dict_launch(pl), g1), label
+        log(14, f"K8 {label} fs=1 it=12 nb=14: clusters of "
+                f"{list(mf.CLUSTER_SIZES)} blocks per tile and the plan's "
+                f"each bit-identical to G=1 and to the plain version; "
+                f"{plan_text('K8', pl.shape[2] * 128, None, pl.shape[0])}")
+
     # 15. K9 against its plain version, given the plain K8 matrices.
     k9 = fs.fused_normalize_planar(planar, m_plain, M, mc)
     k9_ref = fs.fused_normalize_planar_ref(planar, m_plain, M, mc)
@@ -854,6 +912,14 @@ def run(dev) -> int:
             f"(torch.profiler device time per call, {REPS} calls): "
             f"{fmt_ms(d2)}; {plan_text('K2', SIDE, 2)}; "
             f"{plan_text('K2', SIDE_LARGE, 2)}")
+    for label, pl in k8_shapes:
+        def k8_call(pl=pl):
+            return vf.vahadane_stain_matrix_planar(pl)
+        log(18, f"K8 {label} fs=1 it=12 nb=14: the kernel alone "
+                f"(torch.profiler device time per call, {REPS} calls) "
+                f"{fmt_ms(device_ms(k8_call, 'vahadane_dict_kernel'))}; by "
+                f"events {time_ms(k8_call):.4f} ms (median of {REPS}); card "
+                f"'{smi}'")
     kernels += [
         dict(name="vahadane_normalize_planar", route="cuda",
              source="stainlib_tpu_torch/kernels/csrc/vahadane_fused.cu",
@@ -1073,10 +1139,7 @@ def run(dev) -> int:
             f"{share26:.3e}; B={B_LARGE} {SIDE_LARGE}^2: max={mx26b} u8, "
             f"share differing={share26b:.3e} (gate: max<=1, share<1e-3)")
 
-    one256 = batch[:1].contiguous()
-    for label, x in ((f"B={B} {SIDE}^2", batch),
-                     (f"B={B_LARGE} {SIDE_LARGE}^2", big512),
-                     (f"B=1 {SIDE}^2", one256)):
+    for label, x in k1_shapes:
         g1 = rf._launch(x, False, means, stds, g=1)
         for g in rf.CLUSTER_SIZES[1:]:
             assert torch.equal(rf._launch(x, False, means, stds, g=g), g1), (

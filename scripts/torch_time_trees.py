@@ -10,11 +10,16 @@ parameters, from a seed). Each process times, with CUDA events (the median
 of 15 calls after a warm-up, ``chip_smoke.time_ms``), the calls a user
 makes:
 
+* ``macenko_normalize`` (kernel K1, ``fit_stride=2, n_bisect=10``, the
+  drop-in API's knobs) and ``vahadane_stain_matrix_planar`` (kernel K8) on
+  256 tiles of 256x256, on one such tile and on 16 tiles of 512x512; each
+  also as the kernel alone (``torch.profiler`` device time per call);
 * ``vahadane_normalize`` (kernel K2) on 256 tiles of 256x256 at
-  ``fit_stride=2, num_iters=8, n_bisect=10``, the drop-in API's knobs, and
-  ``macenko_fit_planar`` (kernel K4) on the 256x256 grid subsample of a
-  2048x2048 field, the tiled route's shape; both also as the kernel alone
-  (``torch.profiler`` device time per call);
+  ``fit_stride=2, num_iters=8, n_bisect=10``, and ``macenko_fit_planar``
+  (kernel K4) on the 256x256 grid subsample of a 2048x2048 field, the
+  tiled route's shape; ``macenko_augment`` (kernel K6) and
+  ``fused_normalize_planar`` (kernel K9) on the 256 tiles; each also as the
+  kernel alone;
 * ``augment_with_matrix_planar`` (kernel K7) on the 256 tiles and
   ``augment_with_matrix`` on the field, ``normalize_with_matrix`` (K3) on
   the field, and ``reinhard_normalize`` (K5) on the 256 tiles, on one
@@ -51,8 +56,8 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(1, str(ROOT))  # after this script's own directory
 from chip_smoke import REPS, device_ms, nvidia_smi, pop_ms, time_ms  # noqa: E402
 from torch_compare_trees import (  # noqa: E402
-    ALPHA, B, BETA, FIELD, LAB_MEANS, LAB_STDS, M_TGT, MC_TGT, SEED, SIDE,
-    VFAST, _synth)
+    ALPHA, B, BETA, FAST, FIELD, LAB_MEANS, LAB_STDS, M_TGT, MC_TGT, SEED,
+    SIDE, VFAST, _synth)
 
 GEO = dict(rotation_range=30.0, width_shift_range=0.1,
            height_shift_range=0.1, shear_range=10.0, zoom_range=0.2,
@@ -92,11 +97,30 @@ def measure(tree: Path, out: Path) -> None:
     beta = torch.tensor(BETA, device=dev).repeat(B, 1)
     one = batch[:1].contiguous()
     big = torch.from_numpy(synth.he_batch(16, 512, 512, seed=SEED + 2)).to(dev)
+    planar_one = planar[:1].contiguous()
+    planar_big = fs.to_planar(big).contiguous()
+    m_src = M.expand(B, 2, 3).contiguous()
 
     def gen(k):
         return torch.Generator().manual_seed(SEED + k)
 
     cases = {
+        f"K1 macenko_normalize B={B} {SIDE}^2 fs=2 nb=10":
+            lambda: mf.macenko_normalize(batch, M, mc, **FAST),
+        f"K1 macenko_normalize B=1 {SIDE}^2 fs=2 nb=10":
+            lambda: mf.macenko_normalize(one, M, mc, **FAST),
+        "K1 macenko_normalize B=16 512^2 fs=2 nb=10":
+            lambda: mf.macenko_normalize(big, M, mc, **FAST),
+        f"K8 vahadane_stain_matrix_planar B={B} {SIDE}^2 fs=1 it=12 nb=14":
+            lambda: vf.vahadane_stain_matrix_planar(planar),
+        f"K8 vahadane_stain_matrix_planar B=1 {SIDE}^2 fs=1 it=12 nb=14":
+            lambda: vf.vahadane_stain_matrix_planar(planar_one),
+        "K8 vahadane_stain_matrix_planar B=16 512^2 fs=1 it=12 nb=14":
+            lambda: vf.vahadane_stain_matrix_planar(planar_big),
+        f"K6 macenko_augment B={B} {SIDE}^2":
+            lambda: mf.macenko_augment(batch, alpha, beta),
+        f"K9 fused_normalize_planar B={B} {SIDE}^2":
+            lambda: fs.fused_normalize_planar(planar, m_src, M, mc),
         f"K2 vahadane_normalize B={B} {SIDE}^2 fs=2 it=8 nb=10":
             lambda: vf.vahadane_normalize(batch, M, mc, **VFAST),
         f"K4 macenko_fit_planar one {SIDE}^2 subsample":
@@ -137,7 +161,9 @@ def measure(tree: Path, out: Path) -> None:
         cases[f"{label} B={B} {SIDE}^2"] = (
             lambda fn=fn, k=k: fn(batch, gen(50 + k)))
     res = {label: time_ms(fn) for label, fn in cases.items()}
-    alone = {"K2": "vahadane_normalize_kernel", "K4": "macenko_fit_kernel",
+    alone = {"K1": "macenko_apply_kernel", "K8": "vahadane_dict_kernel",
+             "K6": "macenko_augment_kernel", "K9": "fused_normalize_kernel",
+             "K2": "vahadane_normalize_kernel", "K4": "macenko_fit_kernel",
              "K7": "augment_apply_kernel", "K3": "matrix_apply_kernel",
              "K5": "reinhard_kernel"}
     for label, fn in list(cases.items()):

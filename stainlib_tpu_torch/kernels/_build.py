@@ -45,7 +45,9 @@ _ARGTYPES = {
         _i32, _i32, _i32, _i32,  # batch, n_pix, pix/ch stride
         _i32, _i32, _i32,  # nblk, blk, stp
         _f32, _f32, _f32, _f32, _f32,  # y_thr, lam, q_lo, q_hi, q_conc
-        _i32, _i32, _ptr],  # it_angle, it_conc, stream
+        _i32, _i32,  # it_angle, it_conc
+        _i32, _i32, _i32, _ptr,  # G, slice, smem bytes, scratch
+        _ptr],  # stream
     "vahadane_normalize_launch": [
         _i32, _ptr, _ptr, _ptr, _ptr,  # device, in, out, scal, luts
         _i32, _i32, _i32, _i32,  # batch, n_pix, pix/ch stride
@@ -60,7 +62,9 @@ _ARGTYPES = {
         _i32, _i32, _i32, _i32,  # batch, n_pix, pix/ch stride
         _i32, _i32, _i32,  # nblk, blk, stp
         _f32, _f32, _f32, _f32,  # y_thr, lam_fit, q_lo, q_hi
-        _i32, _i32, _ptr],  # num_iters, it_angle, stream
+        _i32, _i32,  # num_iters, it_angle
+        _i32, _i32, _i32, _ptr,  # G, slice, smem bytes, scratch
+        _ptr],  # stream
     "fused_normalize_launch": [
         _i32, _ptr, _ptr, _ptr, _ptr,  # device, in, out, scal, lut
         _i32, _i32, _i32, _i32,  # batch, n_pix, pix/ch stride

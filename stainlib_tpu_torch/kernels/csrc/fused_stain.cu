@@ -12,7 +12,7 @@
 // -log(max(u, 1) * (1/255)), which differs from the other kernels'
 // _od_and_mask OD in the last bit for 100 of the 256 byte values.
 // Bound: work per pixel: 17 passes over the whole tile (max, 14 rounds,
-// successor, apply), each a lasso per pixel. Design as K1
+// successor, apply), each a lasso per pixel. Simple design, as K6
 // (macenko_fused.cu): strided passes re-reading the tile through L2, a
 // shared OD table, fixed-order block reductions (bit-reproducible).
 

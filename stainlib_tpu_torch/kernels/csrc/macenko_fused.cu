@@ -3,28 +3,40 @@
 // apply (K3), and the stain-augmentation kernels: the fused augment (K6)
 // and the augment apply (K7).
 //
-// macenko_apply_kernel, one thread block per tile, replaces the Pallas TPU
-// kernel macenko_normalize_planar / _apply_kernel (the JAX package's
+// macenko_apply_kernel replaces the Pallas TPU kernel
+// macenko_normalize_planar / _apply_kernel (the JAX package's
 // kernels/macenko_fused.py:413-490, :541-608). Per tile:
 //   1. ten masked OD moments over the estimation sample;
 //   2. the eigenplane (scalar Newton eigh, one thread, broadcast);
-//   3. the two masked angular percentiles by count bisection, both counted
-//      in one pass per round, then the exact successor recovery;
+//   3. the two masked angular percentiles by count bisection, then the
+//      exact successor recovery;
 //   4. stain rows, the exact K=2 lasso, and the two 99th-percentile
 //      concentration searches over the sample (unmasked);
 //   5. rescale, 255*exp(-od), clip, truncate to uint8 for every pixel.
-// Bound: not bytes (2 x 196 KB per 256^2 tile) but work per pixel. A tile
-// is a chain of about 25 dependent block-wide reductions; at fs=2 nb=10 its
-// passes visit 12.5 tiles' worth of pixels, and once two tiles share an SM
-// the time follows that count (measured on an H100: 0.78 ms for 132 tiles,
-// 1.34 ms for 256). Simple design: every phase is a strided pass over the
-// tile, re-read from device memory (L2 keeps it close), followed by a
-// fixed-order block reduction, so the output is bit-reproducible.
-// OD and the luminance terms come from 256-entry tables that the wrapper
-// builds with the plain version's own expressions. The phases are the
-// shared device functions of stain_common.cuh (macenko_rows, conc_maxc,
-// reconstruct), which the Vahadane kernels reuse; stain::Tile there
-// describes the planar / interleaved layouts and the estimation sample.
+// Bound: not bytes (2 x 196 KB per 256^2 tile) but work per pixel and the
+// chain of dependent reductions: phases 1-4 are 25 passes over the sample
+// at fs=2 nb=10, 20 of which only compare one per-pixel value with a
+// midpoint. Design: one thread-block cluster of G blocks of 512 threads per
+// tile, G from macenko_fused.cluster_plan, which weighs the batch against
+// the card's SMs (one image spreads over 16 of them; 256 tiles take two
+// blocks each, staged in device memory). The stain::Staged phases
+// (stain_common.cuh) stage each sample pixel's bytes and mask bit, its
+// pseudo-angle, then its two concentrations, in shared memory (or, for a
+// sample over 293K pixels, in a device-memory scratch buffer, by the same
+// code), so after one pass over device memory every bisection round is a
+// shared-memory compare, three rounds per reduction: a chain of 12
+// dependent reductions. The sample's chunks of 512 pixels are dealt to
+// the cluster's blocks in turns, so a band of background idles no block.
+// Phase 5, the only pass over every pixel, is split over the cluster by
+// pixel range; a thread takes 8 pixels per step through 64-bit accesses
+// (planar: three channel vectors; interleaved: 24 contiguous bytes, with a
+// scalar head and tail where the image is off the vector grid), the
+// lasso's one-stain quotients only where they are read, and converts to
+// uint8 in one instruction (stain::map_image, stain::normalize_bytes).
+// Reductions run in a fixed order, so the output is bit-reproducible and
+// equal at every G. OD and the luminance terms come from 256-entry tables
+// that the wrapper builds with the plain version's own expressions;
+// stain::Tile describes the planar / interleaved layouts and the sample.
 //
 // macenko_fit_kernel replaces macenko_fit_planar / _fit_kernel
 // (:628-679, :688-736): phases 1-4 of K1 on the whole tile, writing the
@@ -63,8 +75,10 @@
 // in one pass per round, the successor recovery), then per pixel the exact
 // lasso, C*alpha+beta where the pixel is tissue (or every pixel with the
 // background flag), 255*exp(-C M) through the tile's own rows. K1 without
-// its maxC percentiles and with the gate; bound and design as K1 (14
-// passes over the tile at the default 10 angle rounds).
+// its maxC percentiles and with the gate. Bound: work per pixel, 14 passes
+// over the tile at the default 10 angle rounds. Simple design: every phase
+// is a strided pass over the tile, re-read from device memory (L2 keeps it
+// close), followed by a fixed-order block reduction (stain::macenko_rows).
 //
 // augment_apply_kernel replaces augment_with_matrix_planar / the
 // _augment_kernel with estimate=False (:886-929): the same per-pixel part
@@ -104,8 +118,8 @@ struct Args {
   int nblk, blk, stp;
   float y_thr, lam, q_lo, q_hi, q_conc;
   int it_angle, it_conc;
-  int slice;      // K4: sample pixels staged per block
-  float* scratch;  // K4: the blocks' stages in device memory, or nullptr
+  int slice;      // K1, K4: sample pixels staged per block
+  float* scratch;  // K1, K4: the blocks' stages in device memory, or nullptr
 };
 
 struct Shared {
@@ -125,27 +139,7 @@ __device__ __forceinline__ stain::Tile load_tile(const Args& a, Shared& sh) {
                      a.ch_stride, a.nblk, a.blk, a.stp, a.y_thr};
 }
 
-__global__ void __launch_bounds__(kThreads, 2) macenko_apply_kernel(Args a) {
-  __shared__ Shared sh;
-  const stain::Tile t = load_tile(a, sh);
-  const float* scal = a.scal + blockIdx.x * 8;
-
-  // Phases 1-3: moments, eigenplane, angular percentiles, stain rows.
-  float he[6];
-  stain::macenko_rows<kThreads>(t, a.q_lo, a.q_hi, a.it_angle, sh.fbuf,
-                                sh.ibuf, sh.dbuf, sh.v_sh, he);
-  // Phase 4: 99th-pct concentrations over the sample.
-  const stain::Gram g = stain::gram(he);
-  float maxc[2];
-  stain::conc_maxc<kThreads>(t, he, g, a.lam, a.q_conc, a.it_conc, sh.fbuf,
-                             sh.ibuf, maxc);
-  // Phase 5: rescale + Beer-Lambert reconstruction on every pixel.
-  uint8_t* dst = static_cast<uint8_t*>(a.out) + (size_t)blockIdx.x * 3 * a.n_pix;
-  stain::reconstruct<kThreads>(t, dst, he, g, a.lam, maxc, scal, scal[6],
-                               scal[7]);
-}
-
-// K4: one cluster of G blocks per tile (blockIdx.x / G), the bisection
+// K1, K4: one cluster of G blocks per tile (blockIdx.x / G), the bisection
 // operands and the sample's bytes staged in `stage` (dynamic shared memory,
 // 12 * a.slice bytes) or, with a.scratch, in the block's part of it.
 struct ClusterShared {
@@ -157,21 +151,42 @@ struct ClusterShared {
   stain::ClusterSlots cs;
 };
 
+template <bool kPlanar>
+__global__ void __launch_bounds__(kThreads, 2) macenko_apply_kernel(Args a) {
+  __shared__ ClusterShared sh;
+  extern __shared__ __align__(16) float stage[];
+  stain::Staged s = stain::stage_tile<kThreads>(a, sh, stage, kThreads);
+  const int tile = blockIdx.x / s.G;
+  const size_t tile_off = (size_t)tile * 3 * a.n_pix;
+  const float* scal = a.scal + tile * 8;
+
+  // Phases 1-3: moments, eigenplane, angular percentiles, stain rows.
+  stain::ApplyScal as;
+  stain::staged_macenko_rows<kThreads>(s, a.q_lo, a.q_hi, a.it_angle, as.he);
+  // Phase 4: 99th-pct concentrations over the sample.
+  as.g = stain::gram(as.he);
+  as.lam = a.lam;
+  float maxc[2];
+  stain::staged_conc_maxc<kThreads>(s, as.he, as.g, a.lam, a.q_conc,
+                                    a.it_conc, maxc);
+  // Phase 5: rescale + Beer-Lambert reconstruction, this block's share of
+  // the tile's pixels, 8 per thread and step.
+  as.scale1 = scal[6] / fmaxf(maxc[0], 1e-8f);
+  as.scale2 = scal[7] / fmaxf(maxc[1], 1e-8f);
+  for (int i = 0; i < 6; ++i) as.tgt[i] = scal[i];
+  const float* od = sh.lut[0];
+  stain::map_image<kPlanar, 8, kThreads>(
+      s.t.src, static_cast<uint8_t*>(a.out) + tile_off, a.n_pix, (int)s.rank,
+      (int)s.G,
+      [&](uint32_t r, uint32_t g, uint32_t b, uint32_t* out) {
+        stain::normalize_bytes(r, g, b, od, as, out);
+      });
+}
+
 __global__ void __launch_bounds__(kThreads, 2) macenko_fit_kernel(Args a) {
   __shared__ ClusterShared sh;
   extern __shared__ __align__(16) float stage[];
-  for (int i = threadIdx.x; i < 4 * 256; i += kThreads)
-    sh.lut[i >> 8][i & 255] = a.luts[i];
-  __syncthreads();
-  const unsigned G = cooperative_groups::this_cluster().num_blocks();
-  const int tile = blockIdx.x / G;
-  const stain::Tile t{a.in + (size_t)tile * 3 * a.n_pix, sh.lut, a.n_pix,
-                      a.pix_stride, a.ch_stride, a.nblk, a.blk, a.stp,
-                      a.y_thr};
-  float* vals = a.scratch ? a.scratch + (size_t)blockIdx.x * 3 * a.slice
-                          : stage;
-  stain::Staged s = stain::make_staged(t, vals, a.slice, sh.fbuf, sh.ibuf,
-                                       sh.dbuf, sh.res, &sh.cs);
+  stain::Staged s = stain::stage_tile<kThreads>(a, sh, stage, 0);
   float he[6];
   stain::staged_macenko_rows<kThreads>(s, a.q_lo, a.q_hi, a.it_angle, he);
   const stain::Gram g = stain::gram(he);
@@ -179,7 +194,7 @@ __global__ void __launch_bounds__(kThreads, 2) macenko_fit_kernel(Args a) {
   stain::staged_conc_maxc<kThreads>(s, he, g, a.lam, a.q_conc, a.it_conc,
                                     maxc);
   if (s.rank == 0 && threadIdx.x == 0) {
-    float* out = static_cast<float*>(a.out) + tile * 8;
+    float* out = static_cast<float*>(a.out) + blockIdx.x / s.G * 8;
     for (int i = 0; i < 6; ++i) out[i] = he[i];
     out[6] = maxc[0];
     out[7] = maxc[1];
@@ -340,44 +355,23 @@ __global__ void __launch_bounds__(kAugThreads) augment_apply_kernel(AugArgs a) {
     const uint8_t* src = a.in + img_off;
     uint8_t* dst = a.out + img_off;
     // Interleaved: an image's base need not be W-byte aligned. Its first
-    // `head` pixels (3 * head = -base mod W; kInv3 = 1/3 mod W) and the
-    // pixels after the last whole group of W go one at a time.
+    // `head` pixels and the pixels after the last whole group of W go one
+    // at a time.
     int head = 0;
     bool in_vec = a.in_vec, out_vec = a.out_vec;
     if (!kPlanar) {
-      constexpr unsigned kInv3 = W == 16 ? 11u : 3u;
-      const unsigned off = (unsigned)((uintptr_t)src & (W - 1));
-      head = min((int)((((W - off) & (W - 1)) * kInv3) & (W - 1)), a.n_pix);
+      head = stain::vector_head<W>(src, a.n_pix);
       in_vec = true;
       out_vec = ((uintptr_t)(dst + 3 * head) & (W - 1)) == 0;
     }
     const int groups = (a.n_pix - head) / W;
     const int grp = chunk * kAugThreads + (int)threadIdx.x;
-    if (grp < groups) {
-      const uint8_t* s = src + 3 * head;
-      uint8_t* d = dst + 3 * head;
-      stain::Pixels<W> x, y;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        x.v[k] = stain::load<W, true>(
-            s + stain::vec_offset<kPlanar, W>(a.n_pix, grp, k), in_vec);
-        for (int i = 0; i < W / 4; ++i) y.v[k].w[i] = 0;
-      }
-#pragma unroll
-      for (int j = 0; j < W; ++j) {
-        uint32_t px[3];
-        augment_bytes<kAll>(stain::px_get<kPlanar, W>(x, j, 0),
-                            stain::px_get<kPlanar, W>(x, j, 1),
-                            stain::px_get<kPlanar, W>(x, j, 2), tab, im, a.lam,
-                            a.y_thr, px);
-#pragma unroll
-        for (int c = 0; c < 3; ++c) stain::px_put<kPlanar, W>(y, j, c, px[c]);
-      }
-#pragma unroll
-      for (int k = 0; k < 3; ++k)
-        stain::store<W>(d + stain::vec_offset<kPlanar, W>(a.n_pix, grp, k),
-                        y.v[k], out_vec);
-    }
+    if (grp < groups)
+      stain::map_group<kPlanar, W>(
+          src + 3 * head, dst + 3 * head, a.n_pix, grp, in_vec, out_vec,
+          [&](uint32_t r, uint32_t g, uint32_t b, uint32_t* px) {
+            augment_bytes<kAll>(r, g, b, tab, im, a.lam, a.y_thr, px);
+          });
     if (!kPlanar && chunk == 0) {
       // Warp 0 takes the head pixels, warp 1 the tail (under W each).
       const int tail0 = head + W * groups;
@@ -426,25 +420,32 @@ Args make_args(const void* in, void* out, const void* scal, const void* luts,
 
 }  // namespace
 
+// K1 and K4 over `batch` tiles: clusters of G blocks, each staging `slice`
+// sample pixels (12 bytes each; macenko_fused.cluster_plan) in `smem` bytes
+// of dynamic shared memory or, where `scratch` is given (smem 0), in
+// batch * G * 12 * slice bytes of device memory. K1 reads planar tiles
+// (pix_stride 1) or interleaved ones.
 extern "C" cudaError_t macenko_normalize_launch(
     int device, const void* in, void* out, const void* scal, const void* luts,
     int batch, int n_pix, int pix_stride, int ch_stride, int nblk, int blk,
     int stp, float y_thr, float lam, float q_lo, float q_hi, float q_conc,
-    int it_angle, int it_conc, void* stream) {
+    int it_angle, int it_conc, int G, int slice, int smem, void* scratch,
+    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (batch == 0) return cudaSuccess;
   const Args a = make_args(in, out, scal, luts, n_pix, pix_stride, ch_stride,
                            nblk, blk, stp, y_thr, lam, q_lo, q_hi, q_conc,
-                           it_angle, it_conc);
-  macenko_apply_kernel<<<batch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return cudaGetLastError();
+                           it_angle, it_conc, slice,
+                           static_cast<float*>(scratch));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return pix_stride == 1
+             ? stain::launch_cluster<macenko_apply_kernel<true>>(
+                   a, device, batch, G, kThreads, smem, s)
+             : stain::launch_cluster<macenko_apply_kernel<false>>(
+                   a, device, batch, G, kThreads, smem, s);
 }
 
-// K4 over `batch` tiles: clusters of G blocks, each staging `slice` pixels
-// (12 bytes each; macenko_fused.cluster_plan) in `smem` bytes of dynamic
-// shared memory or, where `scratch` is given (smem 0), in
-// batch * G * 12 * slice bytes of device memory.
 extern "C" cudaError_t macenko_fit_launch(
     int device, const void* in, void* out, const void* luts, int batch,
     int n_pix, int pix_stride, int ch_stride, float y_thr, float lam,

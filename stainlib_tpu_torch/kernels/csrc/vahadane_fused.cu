@@ -1,5 +1,5 @@
-// Fused Vahadane kernels (sm_90a): fit + transform (K2) as one thread-block
-// cluster per tile, the dictionary (K8) as one thread block per tile.
+// Fused Vahadane kernels (sm_90a): fit + transform (K2) and the dictionary
+// (K8), each one thread-block cluster per tile.
 //
 // vahadane_normalize_kernel replaces the Pallas TPU kernel
 // vahadane_normalize_planar / _vahadane_full_kernel (the JAX package's
@@ -33,17 +33,28 @@
 // instead, by the same code. Reductions
 // run over the block, then across the cluster through distributed shared
 // memory in rank order; the scalar step after a sum (eigenplane, BCD
-// update) runs on one thread and is broadcast. The output is
+// update) runs on one thread and is broadcast. A BCD pass divides by its
+// three divisors with the loop-invariant half of each division kept
+// (stain::lasso2_by: the division's own bits). The output is
 // bit-reproducible and equals the plain version's. A tile is then a chain
 // of 20 dependent reductions, and the time grows with the blocks per tile
 // (PERF.md, section 5).
 //
 // vahadane_dict_kernel replaces vahadane_stain_matrix_planar / _dict_kernel
-// (:48-108, :286-323): phases 1-2 only, writing [D(6), n_valid, 0] per
-// tile; the wrapper does the swap / normalization / NaN post-pass. It keeps
-// the block-per-tile design (stain::macenko_rows, stain::bcd_iteration):
-// strided passes re-reading the tile through L2, fixed-order block
-// reductions.
+// (:48-108, :286-323): phases 1-2 only, on the whole tile at the callers'
+// fit_stride=1, writing [D(6), n_valid, 0] per tile; the wrapper does the
+// swap / normalization / NaN post-pass. Bound: work per pixel; at it=12
+// nb=14 a tile is 12 BCD passes (a lasso, nine products and nine double
+// sums per tissue pixel) after a warm start of 5 reductions. Design: K2's
+// cluster and stage, G from cluster_plan("K8"), which weighs the batch
+// against the card's SMs (one image spreads over 16 of them; 256 tiles
+// take two blocks each, staged in device memory). The sample's chunks of
+// 512 pixels are dealt to the cluster's blocks in turns, so a band of
+// background idles no block. The warm start's 13 passes become one pass
+// over device memory and shared-memory compares; the 12 alternations read
+// one staged word per pixel (its bytes and mask bit) in place of three
+// bytes from device memory, skip a pixel outside the mask, and divide as
+// K2's do (stain::staged_bcd_iteration). Rank 0 writes the eight floats. A chain of 17 dependent reductions per tile.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,40 +75,11 @@ struct Args {
   int nblk, blk, stp;
   float y_thr, lam_fit, lam, q_lo, q_hi, q_conc;
   int num_iters, it_angle, it_conc;
-  int slice;      // K2: sample pixels staged per block
-  float* scratch;  // K2: the blocks' stages in device memory, or nullptr
+  int slice;      // sample pixels staged per block
+  float* scratch;  // the blocks' stages in device memory, or nullptr
 };
 
-struct Shared {
-  double dbuf[9 * kWarps];
-  float lut[4][256];
-  float fbuf[2 * kWarps];
-  int ibuf[2 * kWarps];
-  float v_sh[6];
-  float d_sh[6];
-};
-
-// Phases 1-2: warm start and BCD on the estimation sample -> D, n_valid.
-__device__ __forceinline__ float fit_dictionary(const Args& a, Shared& sh,
-                                                const stain::Tile& t,
-                                                float D[6]) {
-  const float n_valid = stain::macenko_rows<kThreads>(
-      t, a.q_lo, a.q_hi, a.it_angle, sh.fbuf, sh.ibuf, sh.dbuf, sh.v_sh, D);
-  for (int it = 0; it < a.num_iters; ++it)
-    stain::bcd_iteration<kThreads>(t, D, a.lam_fit, sh.dbuf, sh.d_sh);
-  return n_valid;
-}
-
-__device__ __forceinline__ stain::Tile load_tile(const Args& a, Shared& sh) {
-  for (int i = threadIdx.x; i < 4 * 256; i += kThreads)
-    sh.lut[i >> 8][i & 255] = a.luts[i];
-  __syncthreads();
-  const size_t tile_off = (size_t)blockIdx.x * 3 * a.n_pix;
-  return stain::Tile{a.in + tile_off, sh.lut, a.n_pix, a.pix_stride,
-                     a.ch_stride, a.nblk, a.blk, a.stp, a.y_thr};
-}
-
-// K2: one cluster of G blocks per tile (blockIdx.x / G), the bisection
+// One cluster of G blocks per tile (blockIdx.x / G), the bisection
 // operands and the sample's bytes staged in `stage` (dynamic shared memory,
 // 12 * a.slice bytes) or, with a.scratch, in the block's part of it.
 struct ClusterShared {
@@ -112,18 +94,11 @@ struct ClusterShared {
 __global__ void __launch_bounds__(kThreads, 2) vahadane_normalize_kernel(Args a) {
   __shared__ ClusterShared sh;
   extern __shared__ __align__(16) float stage[];
-  for (int i = threadIdx.x; i < 4 * 256; i += kThreads)
-    sh.lut[i >> 8][i & 255] = a.luts[i];
-  __syncthreads();
-  const unsigned G = cooperative_groups::this_cluster().num_blocks();
+  stain::Staged s = stain::stage_tile<kThreads>(a, sh, stage, 0);
+  const stain::Tile& t = s.t;
+  const unsigned G = s.G;
   const int tile = blockIdx.x / G;
   const size_t tile_off = (size_t)tile * 3 * a.n_pix;
-  const stain::Tile t{a.in + tile_off, sh.lut, a.n_pix, a.pix_stride,
-                      a.ch_stride, a.nblk, a.blk, a.stp, a.y_thr};
-  float* vals = a.scratch ? a.scratch + (size_t)blockIdx.x * 3 * a.slice
-                          : stage;
-  stain::Staged s = stain::make_staged(t, vals, a.slice, sh.fbuf, sh.ibuf,
-                                       sh.dbuf, sh.res, &sh.cs);
   const float* scal = a.scal + tile * 8;
 
   // Phases 1-2: warm start and BCD on the sample.
@@ -156,12 +131,17 @@ __global__ void __launch_bounds__(kThreads, 2) vahadane_normalize_kernel(Args a)
 }
 
 __global__ void __launch_bounds__(kThreads, 2) vahadane_dict_kernel(Args a) {
-  __shared__ Shared sh;
-  const stain::Tile t = load_tile(a, sh);
+  __shared__ ClusterShared sh;
+  extern __shared__ __align__(16) float stage[];
+  stain::Staged s = stain::stage_tile<kThreads>(a, sh, stage, kThreads);
+  // Phases 1-2: warm start and BCD on the sample.
   float D[6];
-  const float n_valid = fit_dictionary(a, sh, t, D);
-  if (threadIdx.x == 0) {
-    float* out = static_cast<float*>(a.out) + blockIdx.x * 8;
+  const float n_valid =
+      stain::staged_macenko_rows<kThreads>(s, a.q_lo, a.q_hi, a.it_angle, D);
+  for (int it = 0; it < a.num_iters; ++it)
+    stain::staged_bcd_iteration<kThreads>(s, D, a.lam_fit);
+  if (s.rank == 0 && threadIdx.x == 0) {
+    float* out = static_cast<float*>(a.out) + blockIdx.x / s.G * 8;
     for (int i = 0; i < 6; ++i) out[i] = D[i];
     out[6] = n_valid;
     out[7] = 0.0f;
@@ -200,7 +180,7 @@ Args make_args(const void* in, void* out, const void* scal, const void* luts,
 
 }  // namespace
 
-// K2 over `batch` tiles: clusters of G blocks, each staging `slice`
+// K2 and K8 over `batch` tiles: clusters of G blocks, each staging `slice`
 // sample pixels (12 bytes each; macenko_fused.cluster_plan) in `smem` bytes
 // of dynamic shared memory or, where `scratch` is given (smem 0), in
 // batch * G * 12 * slice bytes of device memory.
@@ -225,13 +205,14 @@ extern "C" cudaError_t vahadane_dict_launch(
     int device, const void* in, void* out, const void* luts, int batch,
     int n_pix, int pix_stride, int ch_stride, int nblk, int blk, int stp,
     float y_thr, float lam_fit, float q_lo, float q_hi, int num_iters,
-    int it_angle, void* stream) {
+    int it_angle, int G, int slice, int smem, void* scratch, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (batch == 0) return cudaSuccess;
   const Args a = make_args(in, out, nullptr, luts, n_pix, pix_stride,
                            ch_stride, nblk, blk, stp, y_thr, lam_fit, 0.0f,
-                           q_lo, q_hi, 0.0f, num_iters, it_angle, 0, 0, nullptr);
-  vahadane_dict_kernel<<<batch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return cudaGetLastError();
+                           q_lo, q_hi, 0.0f, num_iters, it_angle, 0, slice,
+                           static_cast<float*>(scratch));
+  return stain::launch_cluster<vahadane_dict_kernel>(
+      a, device, batch, G, kThreads, smem, static_cast<cudaStream_t>(stream));
 }

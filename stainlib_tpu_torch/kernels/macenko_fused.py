@@ -29,35 +29,40 @@ Kernel source note (``csrc/macenko_fused.cu``):
 
 * Replaces the six Pallas TPU kernels above.
 * Bound: K1, K4 and K6 by work per pixel, not bytes (2 x 196 KB per 256^2
-  tile): a chain of about 25 (K6: 14) dependent block-wide reductions
-  (moments, angle min/max, the angle and concentration bisection rounds,
-  the successor recoveries) with scalar 3x3 work between them; once two
-  tiles share an SM the time follows the pass count. K10 is one pass; K3
-  and K7 have no reduction: a lasso and three ``expf`` per pixel, bytes in
+  tile), and by their chain of dependent reductions (moments, angle
+  min/max, the angle and concentration bisection rounds, the successor
+  recoveries) with scalar 3x3 work between them. K10 is one pass; K3 and
+  K7 have no reduction: a lasso and three ``expf`` per pixel, bytes in
   and out.
-* Design: K1, K6, K10 run one 512-thread block per tile; every phase is
-  a strided pass over the tile's pixels followed by a warp-shuffle +
-  shared-memory reduction in a fixed order (no float atomics, so the
-  output is bit-reproducible). The tile is re-read from device memory on
-  every pass and L2 keeps it close; OD and the luminance terms come from
-  256-entry tables built on the CPU, so the kernels take no ``log`` per
-  pass and see the same OD bits as the plain versions. K4 runs one
-  thread-block cluster of :func:`cluster_plan`'s G = 16 blocks per tile
-  (the tiled route's batch is one subsample): each block stages its
-  slice's bytes, pseudo-angles, then concentrations, in shared memory, so
-  only the first pass reads device memory and the bisection rounds (three
-  per reduction) are shared-memory compares; the reductions cross the
-  cluster through distributed shared memory in rank order. A tile over
-  293K pixels is staged in device memory instead. K3 runs over (pixel
-  chunks x images), so one large field fills the card. K7 runs a 1-D
-  persistent grid sized from the card over (image, chunk) work items:
-  the tables go into shared memory once per block, OD and luminance term
-  side by side (one 8-byte gather per channel); a thread takes 16 planar
-  or 8 interleaved pixels per step through 128-bit or 64-bit accesses,
-  with a scalar head and tail where an interleaved image is off the
-  vector grid; the lasso's one-stain quotients are taken only where they
-  are read; and the per-image rows, alpha and beta arrive by pointer and
-  stride (:func:`_augment_args`), so the wrapper builds no table.
+* Design: K1 and K4 run one thread-block cluster of :func:`cluster_plan`'s
+  G blocks of 512 threads per tile: each block stages its share of the
+  sample's bytes, pseudo-angles, then concentrations, in shared memory,
+  so only the first pass (and K1's apply) reads device memory and the
+  bisection rounds (three per reduction) are shared-memory compares; the
+  reductions cross the cluster through distributed shared memory in rank
+  order, so every G gives the same bytes. A sample over 293K pixels is
+  staged in device memory instead. K4 takes G = 16 (the tiled route's
+  batch is one subsample); K1's G follows the batch (16 for one image,
+  two blocks per tile staged in device memory for 256 tiles), its blocks
+  take the sample's 512-pixel chunks in turns, and its apply pass, split
+  over the cluster, moves 8 pixels per thread and step through 64-bit
+  accesses with the lazy lasso and a one-instruction uint8 conversion.
+  K6 and K10 run one 512-thread block per tile; every phase is a strided
+  pass over the tile's pixels, re-read from device memory (L2 keeps it
+  close), followed by a warp-shuffle + shared-memory reduction in a fixed
+  order (no float atomics, so the output is bit-reproducible). OD and
+  the luminance terms come from 256-entry tables built on the CPU, so the
+  kernels take no ``log`` per pass and see the same OD bits as the plain
+  versions. K3 runs over (pixel chunks x images), so one large field
+  fills the card. K7 runs a 1-D persistent grid sized from the card over
+  (image, chunk) work items: the tables go into shared memory once per
+  block, OD and luminance term side by side (one 8-byte gather per
+  channel); a thread takes 16 planar or 8 interleaved pixels per step
+  through 128-bit or 64-bit accesses, with a scalar head and tail where
+  an interleaved image is off the vector grid; the lasso's one-stain
+  quotients are taken only where they are read; and the per-image rows,
+  alpha and beta arrive by pointer and stride (:func:`_augment_args`), so
+  the wrapper builds no table.
 
 On a CUDA tensor the wrappers launch the kernels; on a CPU tensor they run
 the plain torch versions (``*_ref``), which mirror the TPU kernels step for
@@ -186,16 +191,20 @@ def _sample_args(n_pix: int, stride: int):
     return blocks, bs * LANES, step * LANES
 
 
-# Thread-block clusters of the staged kernels (K2, K4): a tile's sample is
-# split over G blocks of 512 threads, each staging 12 bytes per sample pixel
-# (two float32 bisection operands, the pixel's bytes and mask bit).
+# Thread-block clusters of the staged kernels (K1, K2, K4, K8): a tile's
+# sample is split over G blocks of 512 threads, each staging 12 bytes per
+# sample pixel (two float32 bisection operands, the pixel's bytes and mask
+# bit).
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
 STAGE_BYTES = 12
+_THREADS = 512
 _SMEM_SM = 228 * 1024  # an H100 SM's shared memory
 _SMEM_BLOCK = 227 * 1024  # one block's opt-in maximum
 # The kernels' static shared memory (10.1 KB: tables, reduction buffers, the
 # cluster's slots) and the 1 KB the runtime keeps per block, rounded up.
 _SMEM_STATIC = 12 * 1024
+_MIN_SLICE = 16384  # sample pixels per block below which a big batch's
+#                     tiles are not split (cluster_plan)
 
 
 class ClusterPlan(NamedTuple):
@@ -205,34 +214,82 @@ class ClusterPlan(NamedTuple):
     #            in a device-memory scratch buffer (:func:`stage_scratch`)
 
 
-def cluster_plan(n_sample: int, kernel: str,
-                 g: int | None = None) -> ClusterPlan:
-    """The cluster size G and the shared memory per block of K4 (``"K4"``,
-    the Macenko fit) or K2 (``"K2"``, Vahadane) for a tile whose estimation
-    sample holds ``n_sample`` pixels.
+def cluster_plan(n_sample: int, kernel: str, g: int | None = None,
+                 batch: int = 1, sms: int = 132) -> ClusterPlan:
+    """The cluster size G and the shared memory per block of a staged
+    kernel for tiles whose estimation sample holds ``n_sample`` pixels:
+    ``"K1"`` (Macenko fit + transform), ``"K8"`` (the Vahadane dictionary),
+    ``"K4"`` (the Macenko fit) or ``"K2"`` (Vahadane fit + transform).
 
     K4 takes G = 16: the tiled route fits one subsample per field, so the
     cluster spreads it over as many SMs as a cluster can hold. K2 takes the
     smallest G whose slice leaves room for two blocks per SM, else 16. A
     slice larger than one block's shared memory (a sample over 293K pixels
-    at G = 16) is staged in device memory instead (``smem`` 0). ``g``
-    forces G (tests and measurements).
+    at G = 16) is staged in device memory instead (``smem`` 0).
+
+    K1 and K8 run on one image (the drop-in ``transform``, an augmentor's
+    fit) and on hundreds of tiles, so their plan also weighs ``batch``
+    against the card's ``sms`` streaming multiprocessors (an H100's 132),
+    by the rule ``scripts/torch_cluster_sweep.py`` measured on an H100:
+
+    * the largest G whose ``batch * G`` blocks find an SM each, staged in
+      shared memory where a block holds the slice (16 for one image, 8 for
+      16 tiles, 2 for 64 tiles of 256x256 at ``fit_stride=2``);
+    * where no such G keeps the slice in shared memory, that G or 2,
+      whichever is larger, staged in device memory: two fat blocks per
+      tile, two to an SM, beat more and thinner ones by their shorter
+      chains of reductions (128 and 256 tiles of 256x256 or 512x512); a
+      sample under 32,768 pixels is not split at all (256 tiles of
+      128x128: G = 1);
+    * a cluster of 8 or 16 blocks whose slices need a whole SM's shared
+      memory each keeps them there only while it has the card to itself
+      (``batch * G`` up to half the SMs); else it is staged in device
+      memory, which leaves two blocks per SM (16 tiles of 512x512: clusters
+      of 8 or 16 whole SMs do not all find room at once).
+
+    Their blocks take the sample in chunks of 512 pixels dealt out in
+    turns, so a slice is a whole number of chunks. ``g`` forces G, staged
+    in shared memory wherever a block holds the slice (tests and
+    measurements).
     """
-    if kernel not in ("K2", "K4"):
+    if kernel not in ("K1", "K2", "K4", "K8"):
         raise ValueError(f"no cluster plan for kernel {kernel!r}")
+    batched = kernel in ("K1", "K8")
 
-    def stage_bytes(size):
-        return STAGE_BYTES * -(-n_sample // size)
+    chunks = -(-n_sample // _THREADS)
 
-    if g is None:
-        two = _SMEM_SM // 2 - _SMEM_STATIC
-        fits = [s for s in CLUSTER_SIZES if stage_bytes(s) <= two]
-        g = fits[0] if fits and kernel == "K2" else CLUSTER_SIZES[-1]
+    def slice_of(size):
+        return _THREADS * -(-chunks // size) if batched else -(
+            -n_sample // size)
+
+    def stage(size):
+        return STAGE_BYTES * slice_of(size)
+
+    one = _SMEM_BLOCK - _SMEM_STATIC
+    two = _SMEM_SM // 2 - _SMEM_STATIC
+    device = False
+    if g is None and batched:
+        own = [s for s in CLUSTER_SIZES if batch * s <= sms and s <= chunks]
+        few = [s for s in own if stage(s) <= one]
+        if few:
+            g = few[-1]
+            device = stage(g) > two and g > 4 and 2 * batch * g > sms
+        else:
+            g = max([2 if n_sample >= 2 * _MIN_SLICE else 1] + own)
+            device = True
+    elif g is None:
+        fits = [s for s in CLUSTER_SIZES if stage(s) <= two]
+        g = fits[0] if fits and kernel != "K4" else CLUSTER_SIZES[-1]
     if g not in CLUSTER_SIZES:
         raise ValueError(f"cluster size {g} is not one of {CLUSTER_SIZES}")
-    smem = stage_bytes(g)
-    return ClusterPlan(g, -(-n_sample // g),
-                       smem if smem <= _SMEM_BLOCK - _SMEM_STATIC else 0)
+    return ClusterPlan(g, slice_of(g),
+                       0 if device or stage(g) > one else stage(g))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stage_scratch(plan: ClusterPlan, batch: int, device):
@@ -478,23 +535,27 @@ def _launch(x, planar: bool, stain_matrix_tgt, max_c_target,
             luminosity_threshold: float = 0.8,
             angular_percentile: float = 99.0, q_conc: float = 99.0,
             regularizer: float = 0.01, n_bisect: int = 14,
-            fit_stride: int = 1):
+            fit_stride: int = 1, g: int | None = None):
+    """K1 on CUDA tiles at :func:`cluster_plan`'s G (``g`` forces it)."""
     global launches
     from stainlib_tpu_torch.kernels import _build
 
     B, dev = x.shape[0], x.device
     n_pix = _n_pix(x, planar)
+    nblk, blk, stp = _sample_args(n_pix, fit_stride)
+    plan = cluster_plan(nblk * blk, "K1", g, B, sm_count(dev))
+    scratch = stage_scratch(plan, B, dev)
     scal = _target_scalars(stain_matrix_tgt, max_c_target, B, dev)
     out = torch.empty_like(x)
     pix_stride, ch_stride = (1, n_pix) if planar else (3, 1)
     _build.launch("macenko_normalize_launch", dev, x.data_ptr(),
                   out.data_ptr(), scal.data_ptr(), _tables(dev).data_ptr(),
-                  B, n_pix, pix_stride, ch_stride,
-                  *_sample_args(n_pix, fit_stride),
+                  B, n_pix, pix_stride, ch_stride, nblk, blk, stp,
                   _y_threshold(luminosity_threshold), regularizer,
                   (100.0 - angular_percentile) / 100.0,
                   angular_percentile / 100.0, q_conc / 100.0,
-                  max(n_bisect - 4, 8), n_bisect)
+                  max(n_bisect - 4, 8), n_bisect, *plan,
+                  None if scratch is None else scratch.data_ptr())
     launches += 1
     return out
 
@@ -514,7 +575,8 @@ def macenko_normalize_planar(
 
     ``stain_matrix_tgt``: (2, 3) or (B, 2, 3); ``max_c_target``: (2,) or
     (B, 2). ``fit_stride`` restricts the estimation statistics to the
-    JAX kernel's stratified row sample; the apply covers every pixel. The
+    JAX kernel's stratified row sample; the apply covers every pixel. On
+    the card each tile is one cluster of ``cluster_plan``'s G blocks. The
     JAX signature's TPU-only knobs (``interpret``, ``tiles_per_step``,
     ``n_cands``) have no counterpart here.
     """

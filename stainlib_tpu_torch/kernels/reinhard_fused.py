@@ -54,7 +54,7 @@ from stainlib_tpu_torch.kernels.fused_stain import (
     from_planar,
     to_planar,
 )
-from stainlib_tpu_torch.kernels.macenko_fused import CLUSTER_SIZES
+from stainlib_tpu_torch.kernels.macenko_fused import CLUSTER_SIZES, sm_count
 from stainlib_tpu_torch.ops.fdiv import fdiv
 
 # Kernel launches since import (or since a caller reset it).
@@ -262,10 +262,8 @@ def reinhard_plan(batch: int, n_pix: int, slots: int = 264,
     return ReinhardPlan(g, 16 * -(-n_pix // (16 * g)))
 
 
-@functools.lru_cache(maxsize=None)
 def _block_slots(device) -> int:
-    props = torch.cuda.get_device_properties(device)
-    return props.multi_processor_count * _BLOCKS_PER_SM
+    return sm_count(device) * _BLOCKS_PER_SM
 
 
 def _launch(x, planar: bool, target_means, target_stds,

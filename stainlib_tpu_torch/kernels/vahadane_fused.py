@@ -1,5 +1,5 @@
 """Fused Vahadane fit + transform and the fused dictionary kernel, one CUDA
-thread block per tile.
+thread-block cluster per tile.
 
 Port of the JAX package's ``kernels/vahadane_fused.py``:
 
@@ -27,13 +27,13 @@ Kernel source note (``csrc/vahadane_fused.cu``):
 * Replaces the Pallas TPU kernels ``vahadane_normalize_planar`` /
   ``_vahadane_full_kernel`` and ``vahadane_stain_matrix_planar`` /
   ``_dict_kernel`` in the JAX package's ``kernels/vahadane_fused.py``.
-* Bound: work per pixel, as K1. At ``fit_stride=2, num_iters=8,
-  n_bisect=10`` a 256^2 tile's passes visit 16.5 tiles' worth of pixels
-  (K1: 12.5); each BCD pass adds a lasso and nine products per tissue
-  pixel.
-* Design: the fit+transform kernel (K2) runs one thread-block cluster of
+* Bound: work per pixel and the chain of dependent reductions, as K1. At
+  ``fit_stride=2, num_iters=8, n_bisect=10`` a 256^2 tile's passes visit
+  16.5 tiles' worth of pixels (K1: 12.5); each BCD pass adds a lasso and
+  nine products per tissue pixel.
+* Design: both kernels run one thread-block cluster of
   :func:`~stainlib_tpu_torch.kernels.macenko_fused.cluster_plan`'s G
-  blocks per tile, each owning a slice of the estimation sample: the
+  blocks per tile, each owning a share of the estimation sample: the
   slice's bytes and mask bits, the pseudo-angles, then the two
   concentrations are staged in shared memory, so only the first pass and
   the apply read device memory and the bisection rounds (three per
@@ -41,10 +41,10 @@ Kernel source note (``csrc/vahadane_fused.cu``):
   through distributed shared memory in rank order; a sample over 293K
   pixels is staged in device memory instead. A BCD iteration is one
   pass: lasso codes, the nine masked sums in one reduction, the row update
-  on one thread, broadcast. The dictionary kernel (K8) keeps
-  K1's design (one 512-thread block per tile, passes re-reading the tile
-  through L2, fixed-order block reductions); both share the phases in
-  ``csrc/stain_common.cuh``.
+  on one thread, broadcast. K2's G follows the sample; the dictionary
+  kernel's (K8) also the batch (16 for one image), and its blocks take
+  the sample's 512-pixel chunks in turns, so a band of background idles
+  none of them. Both share the phases in ``csrc/stain_common.cuh``.
 
 On a CUDA tensor the wrappers launch the kernels; on a CPU tensor they run
 the plain torch versions (``*_ref``), which follow the JAX kernel bodies
@@ -77,6 +77,7 @@ from stainlib_tpu_torch.kernels.macenko_fused import (
     _target_scalars,
     _y_threshold,
     cluster_plan,
+    sm_count,
     stage_scratch,
 )
 from stainlib_tpu_torch.ops.dictlearn import _HE_INIT
@@ -300,33 +301,45 @@ def vahadane_normalize(rgb, stain_matrix_tgt, max_c_target, **kw):
     return _launch(rgb, False, stain_matrix_tgt, max_c_target, **kw)
 
 
+def _dict_launch(rgb_planar, regularizer: float = 0.1, num_iters: int = 12,
+                 luminosity_threshold: float = 0.8, n_bisect: int = 14,
+                 fit_stride: int = 1, g: int | None = None):
+    """K8 on CUDA tiles at :func:`cluster_plan`'s G (``g`` forces it):
+    the (B, 8) rows ``[D(6), n_valid, 0]``."""
+    global dict_launches
+    from stainlib_tpu_torch.kernels import _build
+
+    B, dev = rgb_planar.shape[0], rgb_planar.device
+    n_pix = _n_pix(rgb_planar, True)
+    nblk, blk, stp = _sample_args(n_pix, fit_stride)
+    plan = cluster_plan(nblk * blk, "K8", g, B, sm_count(dev))
+    scratch = stage_scratch(plan, B, dev)
+    plane = torch.empty((B, 8), dtype=torch.float32, device=dev)
+    _build.launch("vahadane_dict_launch", dev, rgb_planar.data_ptr(),
+                  plane.data_ptr(), _tables(dev).data_ptr(), B, n_pix, 1,
+                  n_pix, nblk, blk, stp, _y_threshold(luminosity_threshold),
+                  regularizer, (100.0 - _Q_ANGLE) / 100.0, _Q_ANGLE / 100.0,
+                  num_iters, max(n_bisect - 4, 8), *plan,
+                  None if scratch is None else scratch.data_ptr())
+    dict_launches += 1
+    return plane
+
+
 def vahadane_stain_matrix_planar(rgb_planar, regularizer: float = 0.1,
                                  num_iters: int = 12,
                                  luminosity_threshold: float = 0.8,
                                  n_bisect: int = 14, fit_stride: int = 1):
     """Per-tile (B, 2, 3) Vahadane stain matrices from planar uint8 tiles:
-    the dictionary kernel, then H-first ordering and row normalization in
+    the dictionary kernel (on the card one cluster of ``cluster_plan``'s G
+    blocks per tile), then H-first ordering and row normalization in
     torch; an empty mask gives NaN, as the functional path does."""
-    global dict_launches
     _check(rgb_planar, planar=True)
     kw = dict(regularizer=regularizer, num_iters=num_iters,
               luminosity_threshold=luminosity_threshold, n_bisect=n_bisect,
               fit_stride=fit_stride)
     if rgb_planar.device.type == "cpu":
         return vahadane_stain_matrix_planar_ref(rgb_planar, **kw)
-    from stainlib_tpu_torch.kernels import _build
-
-    B, dev = rgb_planar.shape[0], rgb_planar.device
-    n_pix = _n_pix(rgb_planar, True)
-    plane = torch.empty((B, 8), dtype=torch.float32, device=dev)
-    _build.launch("vahadane_dict_launch", dev, rgb_planar.data_ptr(),
-                  plane.data_ptr(), _tables(dev).data_ptr(), B, n_pix, 1,
-                  n_pix, *_sample_args(n_pix, fit_stride),
-                  _y_threshold(luminosity_threshold), regularizer,
-                  (100.0 - _Q_ANGLE) / 100.0, _Q_ANGLE / 100.0, num_iters,
-                  max(n_bisect - 4, 8))
-    dict_launches += 1
-    return _dict_post(plane)
+    return _dict_post(_dict_launch(rgb_planar, **kw))
 
 
 def vahadane_normalize_planar_2k(rgb_planar, stain_matrix_tgt, max_c_target,

@@ -1,9 +1,10 @@
-"""The cluster plan of the staged kernels K2 (Vahadane normalize) and K4
-(Macenko fit): for every estimation sample the routes admit, a cluster
-size of at most 16 blocks, shared memory within one block's 227 KB, and
-slices that together cover the sample; larger samples staged in device
-memory. And the plan of K5 (Reinhard), which weighs the batch against the
-card's block slots. Pure Python: no card needed.
+"""The cluster plan of the staged kernels K2 (Vahadane normalize), K4
+(Macenko fit), K1 (Macenko normalize) and K8 (the Vahadane dictionary):
+for every estimation sample the routes admit, a cluster size of at most
+16 blocks, shared memory within one block's 227 KB, and slices that
+together cover the sample; larger samples staged in device memory. K1's
+and K8's plans also weigh the batch against the card's block slots, as
+the plan of K5 (Reinhard) does. Pure Python: no card needed.
 """
 
 import pytest
@@ -16,14 +17,22 @@ BLOCK_BYTES = 227 * 1024  # shared memory one block of an H100 can take
 SM_BYTES = 228 * 1024  # shared memory of one SM
 
 
-def _check(plan, n):
+def _check(plan, n, chunk=1, by_rule=False):
+    """``chunk``: K1 and K8 deal the sample out in chunks of 512 pixels, so
+    their slices are whole chunks. ``by_rule``: their batch rule may stage a
+    slice in device memory that a block's shared memory would hold."""
     assert plan.g in mf.CLUSTER_SIZES and plan.g <= 16
     assert plan.g * plan.slice >= n
-    assert (plan.g - 1) * plan.slice < n  # no block left without pixels
+    chunks = -(-n // chunk)
+    assert plan.slice == chunk * -(-chunks // plan.g)
+    if chunk == 1:
+        assert (plan.g - 1) * plan.slice < n  # no block without pixels
+    elif by_rule:
+        assert chunks >= plan.g  # dealt in turns: a chunk or more each
     if plan.smem:
         assert plan.smem == 12 * plan.slice
         assert plan.smem + mf._SMEM_STATIC <= BLOCK_BYTES
-    else:  # staged in device memory: the slice fits no block
+    elif not by_rule:  # staged in device memory: the slice fits no block
         assert 12 * plan.slice + mf._SMEM_STATIC > BLOCK_BYTES
 
 
@@ -65,40 +74,111 @@ def test_k2_plan_at_the_api_shapes():
     assert mf.cluster_plan(262144, "K2") == (16, 16384, 192 * 1024)
 
 
-@pytest.mark.parametrize("kernel", ["K2", "K4"])
+@pytest.mark.parametrize("kernel", ["K2", "K4", "K1", "K8"])
 def test_forced_cluster_sizes(kernel):
-    """``g`` forces G; a slice that fits no block's shared memory is staged
-    in device memory; sizes outside 1..16 and other kernels are refused."""
+    """``g`` forces G, whatever the batch; a slice that fits no block's
+    shared memory is staged in device memory; sizes outside 1..16 and
+    other kernels are refused."""
+    chunk = 512 if kernel in ("K1", "K8") else 1
     for n in (8192, 32768, 65536, 262144):
         for g in mf.CLUSTER_SIZES:
             plan = mf.cluster_plan(n, kernel, g)
-            _check(plan, n)
+            _check(plan, n, chunk)
             assert plan.g == g
+            assert mf.cluster_plan(n, kernel, g, batch=256) == plan
             fits = 12 * -(-n // g) + mf._SMEM_STATIC <= BLOCK_BYTES
             assert (plan.smem > 0) == fits
     for g in (0, 3, 32):
         with pytest.raises(ValueError, match="cluster size"):
             mf.cluster_plan(8192, kernel, g)
     with pytest.raises(ValueError, match="no cluster plan"):
-        mf.cluster_plan(8192, "K1")
+        mf.cluster_plan(8192, "K9")
 
 
-@pytest.mark.parametrize("kernel", ["K2", "K4"])
+@pytest.mark.parametrize("kernel", ["K2", "K4", "K1", "K8"])
 def test_plan_stages_large_samples_in_device_memory(kernel):
     """A sample over 16 blocks' shared memory (1024^2 at fs=1, 293,547
     pixels) runs as a cluster of 16 staged in a device-memory scratch
     buffer of 12 bytes per sample pixel; one pixel less fits."""
-    limit = 16 * ((BLOCK_BYTES - mf._SMEM_STATIC) // 12)
+    chunk = 512 if kernel in ("K1", "K8") else 1
+    limit = 16 * ((BLOCK_BYTES - mf._SMEM_STATIC) // (12 * chunk) * chunk)
     for n in (limit + 1, 1024 * 1024):
-        plan = mf.cluster_plan(n, kernel)
-        _check(plan, n)
+        plan = mf.cluster_plan(n, kernel, batch=3)
+        _check(plan, n, chunk)
         assert plan.g == 16 and plan.smem == 0
         buf = mf.stage_scratch(plan, 3, "cpu")
         assert buf.dtype == torch.float32
         assert buf.numel() * 4 == 3 * 16 * 12 * plan.slice
-    plan = mf.cluster_plan(limit, kernel)
+    plan = mf.cluster_plan(limit, kernel, batch=3)
     assert plan.g == 16 and plan.smem == 12 * plan.slice
     assert mf.stage_scratch(plan, 3, "cpu") is None
+    if chunk == 1:  # K2's and K4's plans do not read the batch
+        assert mf.cluster_plan(limit, kernel, batch=256) == plan
+
+
+BATCHES = (1, 2, 3, 4, 8, 16, 17, 32, 64, 66, 67, 100, 128, 132, 133, 256)
+
+
+@pytest.mark.parametrize("fit_stride", [1, 2])
+@pytest.mark.parametrize("kernel", ["K1", "K8"])
+def test_batched_plan_covers_the_routes(kernel, fit_stride):
+    """K1's and K8's plan for every square tile the routes admit (64^2 to
+    512^2) in batches of 1 to 256: slices of whole chunks that cover the
+    sample, shared memory within one block's maximum or a scratch buffer of
+    12 bytes per staged pixel, and the batch rule: the largest G that gives
+    each block an SM of its own, in shared memory wherever some such G
+    allows it; otherwise that G or two blocks per tile (one for a sample
+    under 32,768 pixels), whichever is more, staged in device memory; and
+    no shared-memory slice that keeps a second block off its SM unless the
+    cluster has the card to itself."""
+    for n in _k2_samples(fit_stride):
+        for batch in BATCHES:
+            plan = mf.cluster_plan(n, kernel, batch=batch)
+            _check(plan, n, 512, by_rule=True)
+            assert mf.cluster_plan(n, kernel, batch=batch, sms=132) == plan
+            buf = mf.stage_scratch(plan, batch, "cpu")
+            if plan.smem:
+                assert buf is None
+            else:
+                assert buf.numel() * 4 == batch * plan.g * 12 * plan.slice
+            own = [g for g in mf.CLUSTER_SIZES if batch * g <= 132
+                   and 512 * g < n + 512]
+            alone = [g for g in own if mf.cluster_plan(n, kernel, g).smem]
+            if alone:
+                assert plan.g == alone[-1]
+            else:
+                g = max(own + [2 if n >= 32768 else 1])
+                assert plan == (g, mf.cluster_plan(n, kernel, g).slice, 0)
+            if plan.smem and plan.g > 4 and batch * plan.g > 66:
+                assert 2 * (plan.smem + mf._SMEM_STATIC) <= SM_BYTES
+
+
+def test_batched_plan_follows_the_card():
+    """The batch rule counts the SMs it is given: on a card of 66 a batch
+    of 64 tiles is planned as 128 tiles are on an H100's 132."""
+    for kernel, n in (("K1", 32768), ("K8", 65536), ("K1", 131072)):
+        for batch in (1, 4, 16, 64, 128):
+            assert (mf.cluster_plan(n, kernel, batch=batch, sms=66)
+                    == mf.cluster_plan(n, kernel, batch=2 * batch))
+
+
+@pytest.mark.parametrize("kernel,n,want", [
+    ("K1", 32768, {1: "16s", 4: "16s", 16: "8s", 64: "2s", 128: "2d",
+                   256: "2d"}),
+    ("K8", 65536, {1: "16s", 4: "16s", 16: "8s", 64: "2d", 128: "2d",
+                   256: "2d"}),
+    ("K1", 131072, {1: "16s", 4: "16s", 16: "8d", 128: "2d"}),
+    ("K8", 262144, {1: "16s", 4: "16s", 16: "8d", 128: "2d"}),
+    ("K1", 16384, {1: "16s", 128: "1s", 256: "1d"}),
+], ids=["K1-256-fs2", "K8-256-fs1", "K1-512-fs2", "K8-512-fs1", "K1-128-fs1"])
+def test_batched_plan_at_the_swept_shapes(kernel, n, want):
+    """The plan at the shapes ``scripts/torch_cluster_sweep.py`` times: G,
+    then ``s`` for shared memory or ``d`` for device memory."""
+    got = {}
+    for batch in want:
+        plan = mf.cluster_plan(n, kernel, batch=batch)
+        got[batch] = f"{plan.g}{'s' if plan.smem else 'd'}"
+    assert got == want
 
 
 @pytest.mark.parametrize("batch,side,g", [

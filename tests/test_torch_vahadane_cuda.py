@@ -154,3 +154,52 @@ def test_k2_cluster_equals_plain_at_every_cluster_size(cuda, side, kw):
     got = vf.vahadane_normalize(rgb, M, mc, **kw)
     assert torch.equal(got, want)
     assert torch.equal(vf.vahadane_normalize(rgb, M, mc, **kw), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side,kw", [
+    (128, {}), (256, {}), (256, dict(fit_stride=2, n_bisect=10)), (512, {}),
+    (512, dict(fit_stride=2, num_iters=8)), (1024, dict(num_iters=4))],
+    ids=["128-fs1", "256-fs1", "256-fs2", "512-fs1", "512-fs2", "1024-fs1"])
+def test_k8_cluster_equals_plain_at_every_cluster_size(cuda, side, kw):
+    """K8's eight floats per tile equal the plain version's, bit for bit,
+    at each cluster size G (forced through ``cluster_plan``'s ``g``),
+    whether the slices are staged in shared or in device memory (1024^2,
+    and the small G of the others), with a half-white and an all-white
+    tile in the batch: NaN rows for the white tile after the post-pass; two
+    runs are identical."""
+    tiles = he_batch(2, side, side, seed=107)
+    tiles[1, : side // 2] = 255
+    tiles = np.concatenate([tiles, np.full_like(tiles[:1], 255)])
+    planar = fs.to_planar(torch.from_numpy(tiles).to(cuda)).contiguous()
+    want = vf._dict_plane_ref(planar, **kw)
+    for g in mf.CLUSTER_SIZES:
+        got = vf._dict_launch(planar, g=g, **kw)
+        assert torch.equal(got, want), (g, float((got - want).abs().max()))
+    m = vf.vahadane_stain_matrix_planar(planar, **kw)
+    assert torch.isnan(m[2]).all() and not torch.isnan(m[:2]).any()
+    m_want = vf.vahadane_stain_matrix_planar_ref(planar, **kw)
+    assert torch.equal(m[:2], m_want[:2])
+    again = vf.vahadane_stain_matrix_planar(planar, **kw)
+    assert torch.equal(again[:2], m[:2]) and torch.isnan(again[2]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,g,shared", [(1, 16, True), (3, 16, True),
+                                            (70, 2, False)])
+def test_k8_plan_follows_the_batch(cuda, batch, g, shared):
+    """One image and three run at the plan's G for their batch (16 blocks
+    per tile, staged in shared memory), 70 tiles as two blocks per tile
+    staged in device memory, and give the floats of G = 1; a tile's rows do
+    not depend on the batch it came in."""
+    rgb = torch.from_numpy(he_batch(batch, 256, 256, seed=108)).to(cuda)
+    planar = fs.to_planar(rgb).contiguous()
+    plan = mf.cluster_plan(65536, "K8", batch=batch)
+    assert plan.g == g and (plan.smem > 0) == shared
+    before = vf.dict_launches
+    got = vf.vahadane_stain_matrix_planar(planar)
+    assert vf.dict_launches == before + 1
+    assert torch.equal(got, vf._dict_post(vf._dict_launch(planar, g=1)))
+    assert torch.equal(got, vf.vahadane_stain_matrix_planar_ref(planar))
+    one = vf.vahadane_stain_matrix_planar(planar[-1:].contiguous())
+    assert torch.equal(one[0], got[-1])
