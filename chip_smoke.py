@@ -32,10 +32,11 @@ It builds the hand-written CUDA kernels from the sources in the checkout,
 counts each kernel's launches over its path, holds every kernel against
 its plain PyTorch version and against the functional path, checks that two
 runs give identical bytes, and times each kernel against its plain version
-with CUDA events. The thread-block-cluster kernels K1, K2, K4, K5 and K8
-print their cluster plan (``scripts/torch_cluster_sweep.py`` times K1, K2,
-K4 and K8 at every cluster size; K1, K5 and K8 are held to the same bytes
-at every cluster size here).
+with CUDA events. The thread-block-cluster kernels K1, K2, K4, K5, K6, K8
+and K9 print their cluster plan (``scripts/torch_cluster_sweep.py`` times
+K1, K2, K4, K6, K8 and K9 at every cluster size; K1, K5, K6, K8 and K9 are
+held to the same bytes at every cluster size here, and timed alone for 256
+tiles, one tile and 16 tiles of 512x512).
 ``StainAugmentor.pop`` is timed on the host clock, and one pop's device
 work is listed from a profiler trace. Where ``.runs/parent`` holds a ``git archive`` of the
 parent commit, ``scripts/torch_time_trees.py`` times both trees' public
@@ -297,7 +298,7 @@ def ptxas_summary(build_log: str) -> str:
     return "; ".join(out)
 
 
-def augment_phases(dev, smi, batch, batch_np, planar) -> list:
+def augment_phases(dev, smi, batch, batch_np, planar, big512) -> list:
     """Phases 30-36: the stain-augmentation paths and the torch-only
     augmenters. Returns the ``kernels`` entries of K6 and K7."""
     import stainlib_tpu_torch as st
@@ -344,6 +345,26 @@ def augment_phases(dev, smi, batch, batch_np, planar) -> list:
             f"K6={k6_launches} K7={k7_stray}; K6 vs plain max={mx30} u8, "
             f"share differing={share30:.3e} (gate: max<=1, share<1e-3); "
             f"rerun identical")
+
+    k6_shapes = ((f"B={B} {SIDE}^2", batch, alpha, beta),
+                 (f"B={B_LARGE} {SIDE_LARGE}^2", big512,
+                  *draws(36, (B_LARGE,))),
+                 (f"B=1 {SIDE}^2", batch[:1].contiguous(), alpha[:1],
+                  beta[:1]))
+    for label, x, a6, b6 in k6_shapes:
+        want = mf.macenko_augment_ref(x, a6, b6)
+        pl = fs.to_planar(x).contiguous()
+        for g in mf.CLUSTER_SIZES:
+            assert torch.equal(mf._aug_launch(x, False, a6, b6, g=g),
+                               want), (label, g)
+            assert torch.equal(mf._aug_launch(pl, True, a6, b6, g=g),
+                               fs.to_planar(want)), (label, g)
+        assert torch.equal(mf.macenko_augment(x, a6, b6), want), label
+        n6 = x.shape[1] * x.shape[2]
+        log(30, f"K6 {label}: clusters of {list(mf.CLUSTER_SIZES)} blocks "
+                f"per tile, interleaved and planar, and the plan's each "
+                f"byte-identical to the plain version; "
+                f"{plan_text('K6', n6, None, x.shape[0])}")
 
     # 31. K6 against the functional fit + pop on the CPU, same draws.
     mx31, over31 = budget(mac, AF._stain_augment_pop_apply(
@@ -528,10 +549,15 @@ def augment_phases(dev, smi, batch, batch_np, planar) -> list:
         log(36, f"{label}, median of {REPS} CUDA-event runs (plain, kernel, "
                 f"kernel, plain): kernel {ka:.3f}/{kb:.3f} ms; plain "
                 f"{pa:.3f}/{pb:.3f} ms; card '{smi}'")
+    for label, x, a6, b6 in k6_shapes:
+        def k6_call(x=x, a6=a6, b6=b6):
+            return mf.macenko_augment(x, a6, b6)
+        log(36, f"K6 {label}: the kernel alone (torch.profiler device time "
+                f"per call, {REPS} calls) "
+                f"{fmt_ms(device_ms(k6_call, 'macenko_augment_kernel'))}; by "
+                f"events {time_ms(k6_call):.4f} ms (median of {REPS}); card "
+                f"'{smi}'")
     for label, fn, name in (
-            (f"K6 B={B} {SIDE}^2",
-             lambda: mf.macenko_augment(batch, alpha, beta),
-             "macenko_augment_kernel"),
             (f"K7 B={B} {SIDE}^2",
              lambda: mf.augment_with_matrix_planar(planar, m7, a2, b2),
              "augment_apply_kernel"),
@@ -558,8 +584,8 @@ def augment_phases(dev, smi, batch, batch_np, planar) -> list:
 def plan_text(kernel: str, side_or_n: int, fit_stride: int | None = None,
               batch: int = 1):
     """The cluster plan of K1, K2 or K8 (a ``side``^2 tile at
-    ``fit_stride``; K1 and K8 in a batch of ``batch``) or K4 (an
-    ``n``-pixel tile), as a phrase."""
+    ``fit_stride``), or of K4, K6, K8 or K9 (an ``n``-pixel sample); K1,
+    K6, K8 and K9 in a batch of ``batch``; as a phrase."""
     from stainlib_tpu_torch.kernels import macenko_fused as mf
 
     if fit_stride is None:
@@ -567,7 +593,7 @@ def plan_text(kernel: str, side_or_n: int, fit_stride: int | None = None,
     else:
         nblk, blk, _ = mf._sample_args(side_or_n * side_or_n, fit_stride)
         n, shape = nblk * blk, f"{side_or_n}^2 fs={fit_stride}"
-    if kernel in ("K1", "K8"):
+    if kernel in ("K1", "K6", "K8", "K9"):
         shape = f"B={batch} {shape}"
     p = mf.cluster_plan(n, kernel, batch=batch, sms=mf.sm_count(0))
     where = (f"{p.smem} B of dynamic shared memory per block" if p.smem
@@ -878,6 +904,27 @@ def run(dev) -> int:
     log(15, f"K9 vs plain B={B} {SIDE}^2: max={mx15} u8, share differing="
             f"{share15:.3e} (gate: max<=1, share<1e-3)")
 
+    planar512 = fs.to_planar(big512).contiguous()
+    k9_shapes = ((f"B={B} {SIDE}^2", planar, m_plain),
+                 (f"B={B_LARGE} {SIDE_LARGE}^2", planar512,
+                  vf.vahadane_stain_matrix_planar_ref(planar512)),
+                 (f"B=1 {SIDE}^2", planar[:1].contiguous(), m_plain[:1]))
+    for label, pl, rows in k9_shapes:
+        want = fs.fused_normalize_planar_ref(pl, rows, M, mc)
+        side = int((pl.shape[2] * pl.shape[3]) ** 0.5)
+        il = fs.from_planar(pl, side, side).contiguous()
+        for g in mf.CLUSTER_SIZES:
+            assert torch.equal(fs._launch(pl, True, rows, M, mc, g=g),
+                               want), (label, g)
+            assert torch.equal(fs._launch(il, False, rows, M, mc, g=g),
+                               fs.from_planar(want, side, side)), (label, g)
+        assert torch.equal(fs.fused_normalize_planar(pl, rows, M, mc),
+                           want), label
+        log(15, f"K9 {label}: clusters of {list(mf.CLUSTER_SIZES)} blocks "
+                f"per tile, planar and interleaved, and the plan's each "
+                f"byte-identical to the plain version; "
+                f"{plan_text('K9', side * side, None, pl.shape[0])}")
+
     # 16. The two-kernel pipeline against K2 at the same knobs.
     one = vf.vahadane_normalize_planar(planar, M, mc)
     mx16, share16, _ = compare(two, one)
@@ -919,6 +966,14 @@ def run(dev) -> int:
                 f"(torch.profiler device time per call, {REPS} calls) "
                 f"{fmt_ms(device_ms(k8_call, 'vahadane_dict_kernel'))}; by "
                 f"events {time_ms(k8_call):.4f} ms (median of {REPS}); card "
+                f"'{smi}'")
+    for label, pl, rows in k9_shapes:
+        def k9_call(pl=pl, rows=rows):
+            return fs.fused_normalize_planar(pl, rows, M, mc)
+        log(18, f"K9 {label}: the kernel alone (torch.profiler device time "
+                f"per call, {REPS} calls) "
+                f"{fmt_ms(device_ms(k9_call, 'fused_normalize_kernel'))}; by "
+                f"events {time_ms(k9_call):.4f} ms (median of {REPS}); card "
                 f"'{smi}'")
     kernels += [
         dict(name="vahadane_normalize_planar", route="cuda",
@@ -1202,7 +1257,7 @@ def run(dev) -> int:
         plain_ms=min(t5[1])))
 
     # ---- Stain augmentation (K6, K7; K8 reused) ---------------------------
-    kernels += augment_phases(dev, smi, batch, batch_np, planar)
+    kernels += augment_phases(dev, smi, batch, batch_np, planar, big512)
 
     # 37. The functional paths on the card against their CPU evaluation
     # (reported, not gated): fixed-order contractions round alike on both;

@@ -1,7 +1,7 @@
-"""Time the thread-block-cluster kernels K1, K2, K4 and K8 at every cluster
-size and over the batch.
+"""Time the thread-block-cluster kernels K1, K2, K4, K6, K8 and K9 at every
+cluster size and over the batch.
 
-    python scripts/torch_cluster_sweep.py
+    python scripts/torch_cluster_sweep.py [--kernels K6 K9 ...]
 
 On one GPU, at each cluster size G in 1, 2, 4, 8, 16, forced through
 ``cluster_plan``'s ``g``:
@@ -14,13 +14,16 @@ On one GPU, at each cluster size G in 1, 2, 4, 8, 16, forced through
   of 512x512 and on 256 tiles of 128x128 and of 128x192 (K1 there at
   ``fit_stride=1, n_bisect=14``, the drop-in API's knobs below 256x256):
   the shapes ``cluster_plan``'s batch rule for K1 and K8 is taken from;
+* K6 (``macenko_augment``, the default knobs) and K9
+  (``fused_normalize_planar``, given the plain K8's per-tile rows), whose
+  sample is the whole tile, on the same 256x256 and 512x512 batches;
 * K4 (``macenko_fit_planar``) on the 256x256 grid subsample of a 2048x2048
   field;
 * K2 and K4 on tiles whose sample no cluster's shared memory holds (16
   tiles of 1024x1024 at ``fit_stride=1``, staged in device memory);
-* K1 and K8 once more with the stage forced into device memory where the
-  plan would keep it in shared memory (two blocks then share an SM
-  whatever the slice).
+* K1, K6, K8 and K9 once more with the stage forced into device memory
+  where the plan would keep it in shared memory (two blocks then share an
+  SM whatever the slice).
 
 Every variant is held to its plain PyTorch version (identical bytes,
 identical floats) and timed twice, in order and then in reverse order: the
@@ -32,11 +35,13 @@ lower of the two readings; one row per shape, one column per G and
 staging, the plan's choice, its time over the row's best, the bytes of its
 device-memory stage and the peak of device memory allocated during one
 call over what was allocated before it), the card's name and power limit, and as the last line a JSON object with the same
-figures. Exits non-zero without a CUDA device.
+figures. ``--kernels`` restricts the run to the shapes of the kernels it
+names (default: all six). Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 from pathlib import Path
@@ -47,7 +52,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(1, str(ROOT))  # after this script's own directory
 from chip_smoke import REPS, device_ms, nvidia_smi, time_ms  # noqa: E402
 from torch_compare_trees import (  # noqa: E402
-    B, FAST, FIELD, M_TGT, MC_TGT, SEED, SIDE, VFAST, _synth)
+    ALPHA, B, BETA, FAST, FIELD, M_TGT, MC_TGT, SEED, SIDE, VFAST, _synth)
 
 B_BIG, BIG = 16, 1024
 BATCHES = (1, 4, 16, 64, 96, 128, 256)
@@ -55,10 +60,16 @@ BATCHES_LARGE, SIDE_LARGE = (1, 4, 16, 128), 512
 # Below 256x256 the drop-in API fits on every pixel: (height, width).
 SMALL = ((128, 128), (128, 192))
 DEVICE_NAME = {"K1": "macenko_apply_kernel", "K2": "vahadane_normalize_kernel",
-               "K4": "macenko_fit_kernel", "K8": "vahadane_dict_kernel"}
+               "K4": "macenko_fit_kernel", "K8": "vahadane_dict_kernel",
+               "K6": "macenko_augment_kernel", "K9": "fused_normalize_kernel"}
+BATCHED = ("K1", "K6", "K8", "K9")  # the kernels with the batch rule
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernels", nargs="+", default=list(DEVICE_NAME),
+                    choices=list(DEVICE_NAME))
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_cluster_sweep: no CUDA device", file=sys.stderr)
         return 2
@@ -105,6 +116,22 @@ def main() -> int:
                 lambda g: vf._dict_launch(planar, g=g),
                 lambda got: torch.equal(got, want))
 
+    def k6(x):
+        al = torch.tensor(ALPHA, device=dev).repeat(x.shape[0], 1)
+        be = torch.tensor(BETA, device=dev).repeat(x.shape[0], 1)
+        want = mf.macenko_augment_ref(x, al, be)
+        return (x.shape[1] * x.shape[2], "K6", x.shape[0],
+                lambda g: mf._aug_launch(x, False, al, be, g=g),
+                lambda got: torch.equal(got, want))
+
+    def k9(x):
+        planar = fs.to_planar(x).contiguous()
+        rows = vf.vahadane_stain_matrix_planar_ref(planar)
+        want = fs.fused_normalize_planar_ref(planar, rows, M, mc)
+        return (x.shape[1] * x.shape[2], "K9", x.shape[0],
+                lambda g: fs._launch(planar, True, rows, M, mc, g=g),
+                lambda got: torch.equal(got, want))
+
     def k4(planar):
         want = mf.macenko_fit_planar_ref(planar)
         return (planar.shape[2] * planar.shape[3], "K4", planar.shape[0],
@@ -112,26 +139,34 @@ def main() -> int:
                 lambda got: all(torch.equal(a, b) for a, b in zip(got, want)))
 
     shapes = {}
+
+    def add(label, kern, make, *case):
+        """The case ``make(*case)`` under ``label``, for the kernels run."""
+        if kern in args.kernels:
+            shapes[label] = make(*case)
+
     tiles = [(f"B={b} {SIDE}^2", batch[:b].contiguous()) for b in BATCHES]
     tiles += [(f"B={b} {SIDE_LARGE}^2", large[:b].contiguous())
               for b in BATCHES_LARGE]
     for label, x in tiles:
-        shapes[f"K1 {label} fs=2 nb=10"] = k1(x, FAST)
-        shapes[f"K8 {label} fs=1 it=12 nb=14"] = k8(x)
+        add(f"K1 {label} fs=2 nb=10", "K1", k1, x, FAST)
+        add(f"K8 {label} fs=1 it=12 nb=14", "K8", k8, x)
+        add(f"K6 {label} nb=14", "K6", k6, x)
+        add(f"K9 {label}", "K9", k9, x)
         if x.shape[1] == SIDE or x.shape[0] == 16:
-            shapes[f"K2 {label} fs=2 it=8 nb=10"] = k2(x, VFAST)
+            add(f"K2 {label} fs=2 it=8 nb=10", "K2", k2, x, VFAST)
     for h, w in SMALL:
         small = batch[:, :h, :w].contiguous()
-        shapes[f"K1 B={B} {h}x{w} fs=1 nb=14"] = k1(small, {})
-        shapes[f"K8 B={B} {h}x{w} fs=1 it=12 nb=14"] = k8(small)
-    shapes[f"K2 B={B_BIG} {BIG}^2 fs=1 it=12 nb=14"] = k2(big, {})
-    shapes[f"K4 one {SIDE}^2 subsample"] = k4(sub)
-    shapes[f"K4 B={B_BIG} {BIG}^2"] = k4(big_planar)
+        add(f"K1 B={B} {h}x{w} fs=1 nb=14", "K1", k1, small, {})
+        add(f"K8 B={B} {h}x{w} fs=1 it=12 nb=14", "K8", k8, small)
+    add(f"K2 B={B_BIG} {BIG}^2 fs=1 it=12 nb=14", "K2", k2, big, {})
+    add(f"K4 one {SIDE}^2 subsample", "K4", k4, sub)
+    add(f"K4 B={B_BIG} {BIG}^2", "K4", k4, big_planar)
 
     # (shape, G, stage forced into device memory)
     cases = [(label, g, False) for label in shapes for g in mf.CLUSTER_SIZES]
     cases += [(label, g, True) for label, (n, kern, b, _, _) in shapes.items()
-              if kern in ("K1", "K8") for g in mf.CLUSTER_SIZES
+              if kern in BATCHED for g in mf.CLUSTER_SIZES
               if mf.cluster_plan(n, kern, g, b).smem]
     sms = mf.sm_count(dev)
 

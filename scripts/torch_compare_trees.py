@@ -10,7 +10,9 @@ values differ between the two trees and by how much, and, in each tree,
 whether the kernel equals its plain PyTorch version on the card. The
 kernels: all ten, K1, K2, K4, K5, K6, K7, K8, K9 and K10 at 256 tiles of
 256x256, K3 and K7 on one 2048x2048 field, K4 also on that field's 256x256
-grid subsample (the tiled route's shape). ``OTHER_TREE`` is a checkout of
+grid subsample (the tiled route's shape), K6 and K9 also on one 256x256
+tile and on 16 tiles of 512x512 (the batches their cluster plan treats
+differently). ``OTHER_TREE`` is a checkout of
 another commit, e.g.
 ``git archive <commit> | tar -x -C .runs/parent``. Exits non-zero without
 a CUDA device. The last line is a JSON object with the same figures.
@@ -75,6 +77,10 @@ def dump(tree: Path, out: Path) -> None:
     alpha = torch.tensor(ALPHA, device=dev).expand(B, 2)
     beta = torch.tensor(BETA, device=dev).expand(B, 2)
     m8_plain = vf.vahadane_stain_matrix_planar_ref(planar)
+    one = batch[:1].contiguous()
+    big = torch.from_numpy(synth.he_batch(16, 512, 512, seed=SEED + 2)).to(dev)
+    big_planar = fs.to_planar(big).contiguous()
+    m8_big = vf.vahadane_stain_matrix_planar_ref(big_planar)
 
     def fit(fn, x):
         return torch.cat([y.reshape(x.shape[0], -1) for y in fn(x)], 1)
@@ -88,6 +94,15 @@ def dump(tree: Path, out: Path) -> None:
         "K9": (lambda: fs.fused_normalize_planar(planar, m8_plain, M, mc),
                lambda: fs.fused_normalize_planar_ref(planar, m8_plain, M,
                                                      mc)),
+        "K9 B=1": (
+            lambda: fs.fused_normalize_planar(planar[:1], m8_plain[:1], M,
+                                              mc),
+            lambda: fs.fused_normalize_planar_ref(planar[:1], m8_plain[:1],
+                                                  M, mc)),
+        "K9 B=16 512^2": (
+            lambda: fs.fused_normalize_planar(big_planar, m8_big, M, mc),
+            lambda: fs.fused_normalize_planar_ref(big_planar, m8_big, M,
+                                                  mc)),
         "K3": (lambda: mf.normalize_with_matrix(field, M, mc * 1.1, M, mc),
                lambda: mf.normalize_with_matrix_ref(field, M, mc * 1.1, M,
                                                     mc)),
@@ -99,6 +114,11 @@ def dump(tree: Path, out: Path) -> None:
                lambda: rf.reinhard_normalize_ref(batch, means, stds)),
         "K6": (lambda: mf.macenko_augment(batch, alpha, beta),
                lambda: mf.macenko_augment_ref(batch, alpha, beta)),
+        "K6 B=1": (lambda: mf.macenko_augment(one, alpha[:1], beta[:1]),
+                   lambda: mf.macenko_augment_ref(one, alpha[:1], beta[:1])),
+        "K6 B=16 512^2": (
+            lambda: mf.macenko_augment(big, alpha[:16], beta[:16]),
+            lambda: mf.macenko_augment_ref(big, alpha[:16], beta[:16])),
         "K7": (lambda: mf.augment_with_matrix_planar(planar, M, alpha, beta),
                lambda: mf.augment_with_matrix_planar_ref(planar, M, alpha,
                                                          beta)),

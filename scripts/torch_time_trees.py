@@ -11,15 +11,15 @@ of 15 calls after a warm-up, ``chip_smoke.time_ms``), the calls a user
 makes:
 
 * ``macenko_normalize`` (kernel K1, ``fit_stride=2, n_bisect=10``, the
-  drop-in API's knobs) and ``vahadane_stain_matrix_planar`` (kernel K8) on
-  256 tiles of 256x256, on one such tile and on 16 tiles of 512x512; each
-  also as the kernel alone (``torch.profiler`` device time per call);
+  drop-in API's knobs), ``vahadane_stain_matrix_planar`` (kernel K8),
+  ``macenko_augment`` (kernel K6) and ``fused_normalize_planar`` (kernel
+  K9) on 256 tiles of 256x256, on one such tile and on 16 tiles of
+  512x512; each also as the kernel alone (``torch.profiler`` device time
+  per call);
 * ``vahadane_normalize`` (kernel K2) on 256 tiles of 256x256 at
   ``fit_stride=2, num_iters=8, n_bisect=10``, and ``macenko_fit_planar``
   (kernel K4) on the 256x256 grid subsample of a 2048x2048 field, the
-  tiled route's shape; ``macenko_augment`` (kernel K6) and
-  ``fused_normalize_planar`` (kernel K9) on the 256 tiles; each also as the
-  kernel alone;
+  tiled route's shape; each also as the kernel alone;
 * ``augment_with_matrix_planar`` (kernel K7) on the 256 tiles and
   ``augment_with_matrix`` on the field, ``normalize_with_matrix`` (K3) on
   the field, and ``reinhard_normalize`` (K5) on the 256 tiles, on one
@@ -119,8 +119,16 @@ def measure(tree: Path, out: Path) -> None:
             lambda: vf.vahadane_stain_matrix_planar(planar_big),
         f"K6 macenko_augment B={B} {SIDE}^2":
             lambda: mf.macenko_augment(batch, alpha, beta),
+        f"K6 macenko_augment B=1 {SIDE}^2":
+            lambda: mf.macenko_augment(one, alpha[:1], beta[:1]),
+        "K6 macenko_augment B=16 512^2":
+            lambda: mf.macenko_augment(big, alpha[:16], beta[:16]),
         f"K9 fused_normalize_planar B={B} {SIDE}^2":
             lambda: fs.fused_normalize_planar(planar, m_src, M, mc),
+        f"K9 fused_normalize_planar B=1 {SIDE}^2":
+            lambda: fs.fused_normalize_planar(planar_one, m_src[:1], M, mc),
+        "K9 fused_normalize_planar B=16 512^2":
+            lambda: fs.fused_normalize_planar(planar_big, m_src[:16], M, mc),
         f"K2 vahadane_normalize B={B} {SIDE}^2 fs=2 it=8 nb=10":
             lambda: vf.vahadane_normalize(batch, M, mc, **VFAST),
         f"K4 macenko_fit_planar one {SIDE}^2 subsample":

@@ -66,9 +66,14 @@ _ARGTYPES = {
         _i32, _i32, _i32, _ptr,  # G, slice, smem bytes, scratch
         _ptr],  # stream
     "fused_normalize_launch": [
-        _i32, _ptr, _ptr, _ptr, _ptr,  # device, in, out, scal, lut
-        _i32, _i32, _i32, _i32,  # batch, n_pix, pix/ch stride
-        _f32, _i32, _ptr],  # q, iters, stream
+        _i32, _ptr, _ptr,  # device, in, out
+        _ptr, _i32, _ptr, _i32, _ptr, _i32,  # source rows, target rows,
+        #                                      maxC_target: each a pointer
+        #                                      and a per-tile stride
+        _ptr, _i32, _i32, _i32, _i32,  # lut, batch, n_pix, pix/ch stride
+        _f32, _f32, _i32,  # lam, q, iters
+        _i32, _i32, _i32, _ptr,  # G, slice, smem bytes, scratch
+        _ptr],  # stream
     "macenko_fit_launch": [
         _i32, _ptr, _ptr, _ptr,  # device, in, out, luts
         _i32, _i32, _i32, _i32,  # batch, n_pix, pix/ch stride
@@ -85,9 +90,13 @@ _ARGTYPES = {
         _i32, _i32, _i32, _i32,  # batch, n_pix, pix/ch stride
         _ptr],  # stream
     "augment_launch": [
-        _i32, _ptr, _ptr, _ptr, _ptr,  # device, in, out, scal, luts
-        _i32, _i32, _i32, _i32,  # batch, n_pix, pix/ch stride
-        _f32, _f32, _i32, _ptr],  # q_lo, q_hi, it_angle, stream
+        _i32, _ptr, _ptr,  # device, in, out
+        _ptr, _i32, _ptr, _i32,  # alpha, beta: pointer and per-tile stride
+        _ptr, _i32, _i32, _i32, _i32,  # luts, batch, n_pix, pix/ch stride
+        _f32, _f32, _i32,  # y_thr, lam, background flag
+        _f32, _f32, _i32,  # q_lo, q_hi, it_angle
+        _i32, _i32, _i32, _ptr,  # G, slice, smem bytes, scratch
+        _ptr],  # stream
     "augment_apply_launch": [
         _i32, _ptr, _ptr,  # device, in, out
         _ptr, _i32, _ptr, _i32, _ptr, _i32,  # rows, alpha, beta: each a

@@ -68,24 +68,30 @@
 // a 2048^2 field is one image. Bound by bytes (3 in, 3 out per pixel) and
 // the per-pixel lasso and three expf.
 //
-// macenko_augment_kernel, one thread block per tile, replaces the Pallas
-// TPU kernel macenko_augment_planar / _augment_kernel with estimate=True
-// (:754-813, :822-871): StainAugmentor fit + pop. K1's phases 1-3 on the
-// whole tile (the moments, the eigenplane, both angular bisections counted
-// in one pass per round, the successor recovery), then per pixel the exact
-// lasso, C*alpha+beta where the pixel is tissue (or every pixel with the
-// background flag), 255*exp(-C M) through the tile's own rows. K1 without
-// its maxC percentiles and with the gate. Bound: work per pixel, 14 passes
-// over the tile at the default 10 angle rounds. Simple design: every phase
-// is a strided pass over the tile, re-read from device memory (L2 keeps it
-// close), followed by a fixed-order block reduction (stain::macenko_rows).
+// macenko_augment_kernel replaces the Pallas TPU kernel
+// macenko_augment_planar / _augment_kernel with estimate=True (:754-813,
+// :822-871): StainAugmentor fit + pop. K1's phases 1-3 on the whole tile
+// (the moments, the eigenplane, both angular bisections, the successor
+// recovery), then per pixel the exact lasso, C*alpha+beta where the pixel
+// is tissue (or every pixel with the background flag), 255*exp(-C M)
+// through the tile's own rows. Bound: work per pixel and the chain of
+// dependent reductions, not bytes. Design: K1's cluster, the whole tile
+// the sample (G from macenko_fused.cluster_plan's batch rule: 16 blocks
+// for one image, two per tile staged in device memory for 256 tiles); the
+// staged estimate (stain::staged_macenko_rows) reads device memory once
+// and is then a chain of 7 dependent reductions (the moments, the angles'
+// min and max, four for the ten rounds, the successor); the apply is split
+// over the cluster by pixel range, 8 pixels per thread and step
+// (stain::map_image) through K7's per-pixel body (augment_bytes), which
+// reads the staged kernels' table rows. Per-tile alpha and beta arrive by
+// pointer and stride, the scalars by value: the wrapper builds no table.
 //
 // augment_apply_kernel replaces augment_with_matrix_planar / the
-// _augment_kernel with estimate=False (:886-929): the same per-pixel part
-// against given rows, per pixel with no reduction. Bound by the per-pixel
-// arithmetic (about 105 instructions: the lasso with two IEEE divisions,
-// three expf, the conversions), 3 bytes in and 3 out. Design: a 1-D
-// persistent grid sized from the card (SMs x resident blocks of 256
+// _augment_kernel with estimate=False (:886-929): K6's per-pixel part
+// (augment_bytes) against given rows, per pixel with no reduction. Bound by
+// the per-pixel arithmetic (about 105 instructions: the lasso with two IEEE
+// divisions, three expf, the conversions), 3 bytes in and 3 out. Design: a
+// 1-D persistent grid sized from the card (SMs x resident blocks of 256
 // threads) walks (image, chunk) work items in a fixed stride; a block
 // loads the tables into shared memory once, each channel's OD and
 // luminance term side by side so one 8-byte gather serves both (none of
@@ -118,16 +124,16 @@ struct Args {
   int nblk, blk, stp;
   float y_thr, lam, q_lo, q_hi, q_conc;
   int it_angle, it_conc;
-  int slice;      // K1, K4: sample pixels staged per block
-  float* scratch;  // K1, K4: the blocks' stages in device memory, or nullptr
+  int slice;      // K1, K4, K6: sample pixels staged per block
+  float* scratch;  // K1, K4, K6: the blocks' stages in device memory, or
+                   // nullptr
 };
 
+// K10: one block per tile, stain::masked_moments' buffers.
 struct Shared {
   double dbuf[9 * kWarps];
   float lut[4][256];
-  float fbuf[2 * kWarps];
   int ibuf[2 * kWarps];
-  float v_sh[6];
 };
 
 __device__ __forceinline__ stain::Tile load_tile(const Args& a, Shared& sh) {
@@ -139,9 +145,10 @@ __device__ __forceinline__ stain::Tile load_tile(const Args& a, Shared& sh) {
                      a.ch_stride, a.nblk, a.blk, a.stp, a.y_thr};
 }
 
-// K1, K4: one cluster of G blocks per tile (blockIdx.x / G), the bisection
-// operands and the sample's bytes staged in `stage` (dynamic shared memory,
-// 12 * a.slice bytes) or, with a.scratch, in the block's part of it.
+// K1, K4, K6: one cluster of G blocks per tile (blockIdx.x / G), the
+// bisection operands and the sample's bytes staged in `stage` (dynamic
+// shared memory, 12 * a.slice bytes) or, with a.scratch, in the block's
+// part of it.
 struct ClusterShared {
   double dbuf[10 * kWarps];
   float lut[4][256];
@@ -248,23 +255,105 @@ __global__ void __launch_bounds__(kApplyThreads) matrix_apply_kernel(
   }
 }
 
-// K6. scal: the (B, 16) augment table (stain::AugScal), rows unused;
-// the threshold at [11] replaces Args.y_thr.
-constexpr int kAugScal = 16;
-
-__global__ void __launch_bounds__(kThreads, 2) macenko_augment_kernel(Args a) {
-  __shared__ Shared sh;
-  const float* s = a.scal + blockIdx.x * kAugScal;
-  stain::Tile t = load_tile(a, sh);
-  t.y_thr = s[11];
+// The augment kernels' per-pixel body (K6, K7). One image's values, loaded
+// when a block's work moves to another image (K7) or estimated (K6).
+struct AugImage {
   float he[6];
-  stain::macenko_rows<kThreads>(t, a.q_lo, a.q_hi, a.it_angle, sh.fbuf,
-                                sh.ibuf, sh.dbuf, sh.v_sh, he);
-  const stain::Gram g = stain::gram(he);
-  const stain::AugScal as = stain::aug_scal(s);
-  uint8_t* dst = static_cast<uint8_t*>(a.out) + (size_t)blockIdx.x * 3 * a.n_pix;
-  for (int p = threadIdx.x; p < t.n_pix; p += kThreads)
-    stain::augment_pixel(t, p, dst, he, g, as);
+  stain::Gram g;
+  float a1, a2, b1, b2;
+};
+
+// A byte's OD and channel c's luminance term of it: from K7's table, which
+// keeps the two side by side (one 8-byte gather), or from the staged
+// kernels' rows (OD, then the three channels' terms).
+__device__ __forceinline__ float2 od_lum(const float2 (*tab)[256], int c,
+                                         uint32_t v) {
+  return tab[c][v];
+}
+
+__device__ __forceinline__ float2 od_lum(const float (*lut)[256], int c,
+                                         uint32_t v) {
+  return make_float2(lut[0][v], lut[1 + c][v]);
+}
+
+// One pixel of StainAugmentor.pop (_augment_kernel :797-813) on bytes already
+// in registers: the exact lasso against the rows he (its one-stain quotients
+// only where they are read), C*alpha+beta where the pixel is tissue (or every
+// pixel with kAll, the background flag, which reads no luminance),
+// 255*exp(-C he) through the same rows, truncated to uint8 in one
+// instruction. out: the three channel bytes.
+template <bool kAll, typename Tab>
+__device__ __forceinline__ void augment_bytes(uint32_t r, uint32_t g,
+                                              uint32_t b, Tab tab,
+                                              const AugImage& im, float lam,
+                                              float y_thr, uint32_t out[3]) {
+  float od[3], c1, c2;
+  bool gate = true;
+  if (kAll) {
+    od[0] = od_lum(tab, 0, r).x;
+    od[1] = od_lum(tab, 1, g).x;
+    od[2] = od_lum(tab, 2, b).x;
+  } else {
+    const float2 tr = od_lum(tab, 0, r), tg = od_lum(tab, 1, g),
+                 tb = od_lum(tab, 2, b);
+    od[0] = tr.x;
+    od[1] = tg.x;
+    od[2] = tb.x;
+    gate = tr.y + tg.y + tb.y < y_thr;
+  }
+  stain::lasso2_lazy(od[0], od[1], od[2], im.he, im.g, lam, c1, c2);
+  if (gate) {
+    c1 = c1 * im.a1 + im.b1;
+    c2 = c2 * im.a2 + im.b2;
+  }
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch)
+    out[ch] = stain::u8_trunc(
+        255.0f * expf(-(c1 * im.he[ch] + c2 * im.he[3 + ch])));
+}
+
+// K6. K1's cluster over the whole tile: the stain rows from the staged
+// Macenko estimate, then augment_bytes on this block's share of the tile.
+// alpha and beta come by pointer and stride (0: shared by all tiles); the
+// regularizer (Args.lam), the luminance threshold (Args.y_thr) and the
+// background flag by value.
+struct AugmentArgs : Args {
+  const float* alpha;  // 2 floats per tile
+  const float* beta;   // 2
+  int alpha_stride, beta_stride;
+  bool all;
+};
+
+template <bool kPlanar>
+__global__ void __launch_bounds__(kThreads, 2) macenko_augment_kernel(
+    AugmentArgs a) {
+  __shared__ ClusterShared sh;
+  extern __shared__ __align__(16) float stage[];
+  stain::Staged s = stain::stage_tile<kThreads>(a, sh, stage, kThreads);
+  const int tile = blockIdx.x / s.G;
+  AugImage im;
+  stain::staged_macenko_rows<kThreads>(s, a.q_lo, a.q_hi, a.it_angle, im.he);
+  im.g = stain::gram(im.he);
+  const float* al = a.alpha + (size_t)tile * a.alpha_stride;
+  const float* be = a.beta + (size_t)tile * a.beta_stride;
+  im.a1 = __ldg(al);
+  im.a2 = __ldg(al + 1);
+  im.b1 = __ldg(be);
+  im.b2 = __ldg(be + 1);
+  const float(*lut)[256] = s.t.lut;
+  uint8_t* dst = static_cast<uint8_t*>(a.out) + (size_t)tile * 3 * a.n_pix;
+  if (a.all)
+    stain::map_image<kPlanar, 8, kThreads>(
+        s.t.src, dst, a.n_pix, (int)s.rank, (int)s.G,
+        [&](uint32_t r, uint32_t g, uint32_t b, uint32_t* px) {
+          augment_bytes<true>(r, g, b, lut, im, a.lam, a.y_thr, px);
+        });
+  else
+    stain::map_image<kPlanar, 8, kThreads>(
+        s.t.src, dst, a.n_pix, (int)s.rank, (int)s.G,
+        [&](uint32_t r, uint32_t g, uint32_t b, uint32_t* px) {
+          augment_bytes<false>(r, g, b, lut, im, a.lam, a.y_thr, px);
+        });
 }
 
 // K7. A persistent 1-D grid sized from the card walks (image, chunk) work
@@ -286,45 +375,6 @@ struct AugArgs {
   float lam, y_thr;
   bool in_vec, out_vec;  // planar: the tensors' bases are 16-byte aligned
 };
-
-// One image's values, loaded when a block's work moves to another image.
-struct AugImage {
-  float he[6];
-  stain::Gram g;
-  float a1, a2, b1, b2;
-};
-
-// One pixel of StainAugmentor.pop, stain::augment_pixel's arithmetic on
-// bytes already in registers: tab[c][v] = (OD of v, channel c's luminance
-// term of v), so one 8-byte gather serves both; with kAll (the background
-// flag) the luminance is not read. out: the three channel bytes.
-template <bool kAll>
-__device__ __forceinline__ void augment_bytes(
-    uint32_t r, uint32_t g, uint32_t b, const float2 (*tab)[256],
-    const AugImage& im, float lam, float y_thr, uint32_t out[3]) {
-  float od[3], c1, c2;
-  bool gate = true;
-  if (kAll) {
-    od[0] = tab[0][r].x;
-    od[1] = tab[1][g].x;
-    od[2] = tab[2][b].x;
-  } else {
-    const float2 tr = tab[0][r], tg = tab[1][g], tb = tab[2][b];
-    od[0] = tr.x;
-    od[1] = tg.x;
-    od[2] = tb.x;
-    gate = tr.y + tg.y + tb.y < y_thr;
-  }
-  stain::lasso2_lazy(od[0], od[1], od[2], im.he, im.g, lam, c1, c2);
-  if (gate) {
-    c1 = c1 * im.a1 + im.b1;
-    c2 = c2 * im.a2 + im.b2;
-  }
-#pragma unroll
-  for (int ch = 0; ch < 3; ++ch)
-    out[ch] = stain::u8_trunc(
-        255.0f * expf(-(c1 * im.he[ch] + c2 * im.he[3 + ch])));
-}
 
 template <bool kPlanar, bool kAll, int W>
 __global__ void __launch_bounds__(kAugThreads) augment_apply_kernel(AugArgs a) {
@@ -493,19 +543,36 @@ extern "C" cudaError_t matrix_normalize_launch(
   return cudaGetLastError();
 }
 
+// K6 over `batch` tiles of n_pix pixels, planar (pix_stride 1) or
+// interleaved: clusters of G blocks as K1's, the whole tile the sample.
+// alpha / beta: float32 on the device, tile i's values at ptr + i * stride
+// (stride 0: one set for all tiles).
 extern "C" cudaError_t augment_launch(
-    int device, const void* in, void* out, const void* scal, const void* luts,
-    int batch, int n_pix, int pix_stride, int ch_stride, float q_lo,
-    float q_hi, int it_angle, void* stream) {
+    int device, const void* in, void* out, const void* alpha,
+    int alpha_stride, const void* beta, int beta_stride, const void* luts,
+    int batch, int n_pix, int pix_stride, int ch_stride, float y_thr,
+    float lam, int all, float q_lo, float q_hi, int it_angle, int G,
+    int slice, int smem, void* scratch, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (batch == 0) return cudaSuccess;
   // The estimate covers the whole tile: a one-block sample.
-  const Args a = make_args(in, out, scal, luts, n_pix, pix_stride, ch_stride,
-                           1, n_pix, n_pix, 0.0f, 0.0f, q_lo, q_hi, 0.0f,
-                           it_angle, 0);
-  macenko_augment_kernel<<<batch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return cudaGetLastError();
+  AugmentArgs a;
+  static_cast<Args&>(a) = make_args(
+      in, out, nullptr, luts, n_pix, pix_stride, ch_stride, 1, n_pix, n_pix,
+      y_thr, lam, q_lo, q_hi, 0.0f, it_angle, 0, slice,
+      static_cast<float*>(scratch));
+  a.alpha = static_cast<const float*>(alpha);
+  a.beta = static_cast<const float*>(beta);
+  a.alpha_stride = alpha_stride;
+  a.beta_stride = beta_stride;
+  a.all = all != 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return pix_stride == 1
+             ? stain::launch_cluster<macenko_augment_kernel<true>>(
+                   a, device, batch, G, kThreads, smem, s)
+             : stain::launch_cluster<macenko_augment_kernel<false>>(
+                   a, device, batch, G, kThreads, smem, s);
 }
 
 template <bool kPlanar, bool kAll, int W>

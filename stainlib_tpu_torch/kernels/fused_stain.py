@@ -15,13 +15,21 @@ Kernel source note (``csrc/fused_stain.cu``):
 
 * Replaces the Pallas TPU kernel ``fused_normalize_planar`` /
   ``_normalize_kernel`` in the JAX package's ``kernels/fused_stain.py``.
-* Bound: work per pixel. Per tile it makes 17 passes over every pixel
-  (the concentration maximum, 14 bisection rounds, the successor, the
-  apply), each with a lasso per pixel.
-* Design: K1's (``macenko_fused.py``): one 512-thread block per tile,
-  strided passes re-reading the tile through L2, a shared 256-entry OD
-  table, fixed-order block reductions, so the output is bit-reproducible.
-  The OD table holds ``_od_lasso``'s expression, not ``_od_and_mask``'s.
+* Bound: work per pixel and the chain of dependent reductions, not bytes:
+  a lasso per pixel, 14 bisection rounds over two concentrations per
+  pixel, three ``expf`` per pixel.
+* Design: K1's (``macenko_fused.py``): one thread-block cluster of
+  ``macenko_fused.cluster_plan``'s G blocks of 512 threads per tile (16
+  for one image, two per tile staged in device memory for 256 tiles). The
+  one pass over device memory stages every pixel's two concentrations, so
+  the bisection rounds, three per reduction, compare staged values, and
+  the apply, since the sample is the whole tile, rescales and
+  reconstructs each pixel from its staged concentrations. A shared
+  256-entry OD table holds ``_od_lasso``'s expression, not
+  ``_od_and_mask``'s. The per-tile source rows, target rows and maxC
+  arrive by pointer and stride (``_pointer_arg``), so the wrapper builds
+  no table. Reductions fold in a fixed order, so the output is
+  bit-reproducible and the same at every G.
 
 On a CUDA tensor ``fused_normalize_planar`` launches the kernel; on a CPU
 tensor it runs the plain version ``fused_normalize_planar_ref``.
@@ -287,8 +295,8 @@ def _od_lasso(rgb_planar, h, e, lam):
 
 def _normalize_scalars(stain_matrix_src, stain_matrix_tgt, max_c_target,
                        regularizer, batch, device):
-    """The kernel's (B, 16) per-tile table, the TPU kernel's layout: source
-    rows, target rows, maxC_target, regularizer, pad."""
+    """The plain version's (B, 16) per-tile table, the TPU kernel's layout:
+    source rows, target rows, maxC_target, regularizer, pad."""
     return torch.cat([
         _per_tile(stain_matrix_src, 6, batch, device),
         _per_tile(stain_matrix_tgt, 6, batch, device),
@@ -325,20 +333,30 @@ def fused_normalize_ref(rgb, stain_matrix_src, stain_matrix_tgt,
 
 
 def _launch(x, planar: bool, stain_matrix_src, stain_matrix_tgt,
-            max_c_target, q: float = 99.0, regularizer: float = 0.01):
+            max_c_target, q: float = 99.0, regularizer: float = 0.01,
+            g: int | None = None):
+    """K9 on CUDA tiles at ``macenko_fused.cluster_plan``'s G (``g`` forces
+    it)."""
     global launches
     from stainlib_tpu_torch.kernels import _build
+    from stainlib_tpu_torch.kernels import macenko_fused as mf
 
     B, dev = x.shape[0], x.device
     n_pix = _n_pix(x, planar)
-    scal = _normalize_scalars(stain_matrix_src, stain_matrix_tgt,
-                              max_c_target, regularizer, B, dev)
+    plan = mf.cluster_plan(n_pix, "K9", g, B, mf.sm_count(dev))
+    scratch = mf.stage_scratch(plan, B, dev)
+    (rows, rows_stride), (tgt, tgt_stride), (mct, mct_stride) = (
+        _pointer_arg(stain_matrix_src, 6, B, dev),
+        _pointer_arg(stain_matrix_tgt, 6, B, dev),
+        _pointer_arg(max_c_target, 2, B, dev))
     out = torch.empty_like(x)
     pix_stride, ch_stride = (1, n_pix) if planar else (3, 1)
     _build.launch("fused_normalize_launch", dev, x.data_ptr(),
-                  out.data_ptr(), scal.data_ptr(),
+                  out.data_ptr(), rows.data_ptr(), rows_stride,
+                  tgt.data_ptr(), tgt_stride, mct.data_ptr(), mct_stride,
                   _od_lasso_table(dev).data_ptr(), B, n_pix, pix_stride,
-                  ch_stride, q / 100.0, 14)
+                  ch_stride, regularizer, q / 100.0, 14, *plan,
+                  None if scratch is None else scratch.data_ptr())
     launches += 1
     return out
 
@@ -350,7 +368,10 @@ def fused_normalize_planar(rgb_planar, stain_matrix_src, stain_matrix_tgt,
 
     ``stain_matrix_src``: (B, 2, 3) per-tile source stain matrices;
     ``stain_matrix_tgt``: (2, 3) or (B, 2, 3); ``max_c_target``: (2,) or
-    (B, 2). The JAX signature's ``interpret`` has no counterpart here.
+    (B, 2). On the card each tile is one cluster of
+    ``macenko_fused.cluster_plan``'s G blocks, and a float32 tensor already
+    on the tiles' device reaches the kernel by its own pointer. The JAX
+    signature's ``interpret`` has no counterpart here.
     """
     _check(rgb_planar, planar=True)
     kw = dict(q=q, regularizer=regularizer)

@@ -34,35 +34,36 @@ Kernel source note (``csrc/macenko_fused.cu``):
   recoveries) with scalar 3x3 work between them. K10 is one pass; K3 and
   K7 have no reduction: a lasso and three ``expf`` per pixel, bytes in
   and out.
-* Design: K1 and K4 run one thread-block cluster of :func:`cluster_plan`'s
-  G blocks of 512 threads per tile: each block stages its share of the
-  sample's bytes, pseudo-angles, then concentrations, in shared memory,
-  so only the first pass (and K1's apply) reads device memory and the
-  bisection rounds (three per reduction) are shared-memory compares; the
-  reductions cross the cluster through distributed shared memory in rank
-  order, so every G gives the same bytes. A sample over 293K pixels is
-  staged in device memory instead. K4 takes G = 16 (the tiled route's
-  batch is one subsample); K1's G follows the batch (16 for one image,
-  two blocks per tile staged in device memory for 256 tiles), its blocks
-  take the sample's 512-pixel chunks in turns, and its apply pass, split
-  over the cluster, moves 8 pixels per thread and step through 64-bit
-  accesses with the lazy lasso and a one-instruction uint8 conversion.
-  K6 and K10 run one 512-thread block per tile; every phase is a strided
-  pass over the tile's pixels, re-read from device memory (L2 keeps it
-  close), followed by a warp-shuffle + shared-memory reduction in a fixed
-  order (no float atomics, so the output is bit-reproducible). OD and
-  the luminance terms come from 256-entry tables built on the CPU, so the
-  kernels take no ``log`` per pass and see the same OD bits as the plain
-  versions. K3 runs over (pixel chunks x images), so one large field
-  fills the card. K7 runs a 1-D persistent grid sized from the card over
-  (image, chunk) work items: the tables go into shared memory once per
-  block, OD and luminance term side by side (one 8-byte gather per
-  channel); a thread takes 16 planar or 8 interleaved pixels per step
-  through 128-bit or 64-bit accesses, with a scalar head and tail where
-  an interleaved image is off the vector grid; the lasso's one-stain
-  quotients are taken only where they are read; and the per-image rows,
-  alpha and beta arrive by pointer and stride (:func:`_augment_args`), so
-  the wrapper builds no table.
+* Design: K1, K4 and K6 run one thread-block cluster of
+  :func:`cluster_plan`'s G blocks of 512 threads per tile: each block
+  stages its share of the sample's bytes, pseudo-angles, then
+  concentrations, in shared memory, so only the first pass (and the apply
+  of K1 and K6) reads device memory and the bisection rounds (three per
+  reduction) are shared-memory compares; the reductions cross the cluster
+  through distributed shared memory in rank order, so every G gives the
+  same bytes. A sample over 293K pixels is staged in device memory
+  instead. K4 takes G = 16 (the tiled route's batch is one subsample);
+  K1's and K6's G follow the batch (16 for one image, two blocks per tile
+  staged in device memory for 256 tiles), their blocks take the sample's
+  512-pixel chunks in turns, and their apply pass, split over the
+  cluster, moves 8 pixels per thread and step through 64-bit accesses
+  with the lazy lasso and a one-instruction uint8 conversion (K6 through
+  K7's per-pixel body, with alpha and beta by pointer and stride). K10
+  runs one 512-thread block per tile: one strided pass over the tile,
+  then a warp-shuffle + shared-memory reduction in a fixed order (no
+  float atomics, so the output is bit-reproducible). OD and the luminance
+  terms come from 256-entry tables built on the CPU, so the kernels take
+  no ``log`` per pass and see the same OD bits as the plain versions. K3
+  runs over (pixel chunks x images), so one large field fills the card.
+  K7 runs a 1-D persistent grid sized from the card over (image, chunk)
+  work items: the tables go into shared memory once per block, OD and
+  luminance term side by side (one 8-byte gather per channel); a thread
+  takes 16 planar or 8 interleaved pixels per step through 128-bit or
+  64-bit accesses, with a scalar head and tail where an interleaved image
+  is off the vector grid; the lasso's one-stain quotients are taken only
+  where they are read; and the per-image rows, alpha and beta arrive by
+  pointer and stride (:func:`_augment_args`), so the wrapper builds no
+  table.
 
 On a CUDA tensor the wrappers launch the kernels; on a CPU tensor they run
 the plain torch versions (``*_ref``), which mirror the TPU kernels step for
@@ -191,10 +192,10 @@ def _sample_args(n_pix: int, stride: int):
     return blocks, bs * LANES, step * LANES
 
 
-# Thread-block clusters of the staged kernels (K1, K2, K4, K8): a tile's
-# sample is split over G blocks of 512 threads, each staging 12 bytes per
-# sample pixel (two float32 bisection operands, the pixel's bytes and mask
-# bit).
+# Thread-block clusters of the staged kernels (K1, K2, K4, K6, K8, K9): a
+# tile's sample is split over G blocks of 512 threads, each staging 12 bytes
+# per sample pixel (two float32 bisection operands, the pixel's bytes and
+# mask bit; K9 stages its two concentrations only).
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
 STAGE_BYTES = 12
 _THREADS = 512
@@ -219,7 +220,9 @@ def cluster_plan(n_sample: int, kernel: str, g: int | None = None,
     """The cluster size G and the shared memory per block of a staged
     kernel for tiles whose estimation sample holds ``n_sample`` pixels:
     ``"K1"`` (Macenko fit + transform), ``"K8"`` (the Vahadane dictionary),
-    ``"K4"`` (the Macenko fit) or ``"K2"`` (Vahadane fit + transform).
+    ``"K6"`` (the fused Macenko augment), ``"K9"`` (the fixed-matrix
+    normalize; K6's and K9's sample is the whole tile), ``"K4"`` (the
+    Macenko fit) or ``"K2"`` (Vahadane fit + transform).
 
     K4 takes G = 16: the tiled route fits one subsample per field, so the
     cluster spreads it over as many SMs as a cluster can hold. K2 takes the
@@ -227,10 +230,11 @@ def cluster_plan(n_sample: int, kernel: str, g: int | None = None,
     slice larger than one block's shared memory (a sample over 293K pixels
     at G = 16) is staged in device memory instead (``smem`` 0).
 
-    K1 and K8 run on one image (the drop-in ``transform``, an augmentor's
-    fit) and on hundreds of tiles, so their plan also weighs ``batch``
-    against the card's ``sms`` streaming multiprocessors (an H100's 132),
-    by the rule ``scripts/torch_cluster_sweep.py`` measured on an H100:
+    K1, K6, K8 and K9 run on one image (the drop-in ``transform``,
+    ``stain_augment`` on one image, an augmentor's fit) and on hundreds of
+    tiles, so their plan also weighs ``batch`` against the card's ``sms``
+    streaming multiprocessors (an H100's 132), by the rule
+    ``scripts/torch_cluster_sweep.py`` measured on an H100:
 
     * the largest G whose ``batch * G`` blocks find an SM each, staged in
       shared memory where a block holds the slice (16 for one image, 8 for
@@ -245,16 +249,23 @@ def cluster_plan(n_sample: int, kernel: str, g: int | None = None,
       memory each keeps them there only while it has the card to itself
       (``batch * G`` up to half the SMs); else it is staged in device
       memory, which leaves two blocks per SM (16 tiles of 512x512: clusters
-      of 8 or 16 whole SMs do not all find room at once).
+      of 8 or 16 whole SMs do not all find room at once);
+    * K6 and K9 estimate over the whole tile. K6 takes 16 blocks per tile
+      wherever the rule stages in device memory and ``batch * 16`` blocks
+      fit two to an SM (9 to 16 tiles of 512x512: 17% faster than 8). K9,
+      whose estimate is one lasso pass and no moments or angles, gains
+      from more blocks: wherever the rule stages in device memory it takes
+      slices of at most 16,384 pixels (4 blocks per 256x256 tile, 11%
+      faster than 2 at 256 tiles; 16 per 512x512 tile).
 
     Their blocks take the sample in chunks of 512 pixels dealt out in
     turns, so a slice is a whole number of chunks. ``g`` forces G, staged
     in shared memory wherever a block holds the slice (tests and
     measurements).
     """
-    if kernel not in ("K1", "K2", "K4", "K8"):
+    if kernel not in ("K1", "K2", "K4", "K6", "K8", "K9"):
         raise ValueError(f"no cluster plan for kernel {kernel!r}")
-    batched = kernel in ("K1", "K8")
+    batched = kernel in ("K1", "K6", "K8", "K9")
 
     chunks = -(-n_sample // _THREADS)
 
@@ -277,6 +288,12 @@ def cluster_plan(n_sample: int, kernel: str, g: int | None = None,
         else:
             g = max([2 if n_sample >= 2 * _MIN_SLICE else 1] + own)
             device = True
+        if device and kernel == "K9":
+            g = next((s for s in CLUSTER_SIZES if slice_of(s) <= _MIN_SLICE),
+                     CLUSTER_SIZES[-1])
+        elif (device and kernel == "K6" and 16 * batch <= 2 * sms
+              and chunks >= 16):
+            g = 16  # two blocks to an SM
     elif g is None:
         fits = [s for s in CLUSTER_SIZES if stage(s) <= two]
         g = fits[0] if fits and kernel != "K4" else CLUSTER_SIZES[-1]
@@ -831,11 +848,11 @@ _AUG_SCAL = 16  # width of the augment kernels' per-image table
 def _augment_scalars(stain_matrix, alpha, beta, regularizer: float,
                      luminosity_threshold: float, augment_background: bool,
                      batch, device):
-    """The augment kernels' (B, 16) per-image table, ``_augment_kernel``'s
-    ``scal`` layout (``:842-854, :902-914``): [0:6] stain rows (zeros for
-    K6, which estimates them), [6:8] alpha, [8:10] beta, [10] the lasso
-    regularizer, [11] the linear-luminance threshold of
-    ``luminosity_threshold``, [12] the background flag, [13:16] pad."""
+    """The plain augment versions' (B, 16) per-image table,
+    ``_augment_kernel``'s ``scal`` layout (``:842-854, :902-914``): [0:6]
+    stain rows (zeros for K6, which estimates them), [6:8] alpha, [8:10]
+    beta, [10] the lasso regularizer, [11] the linear-luminance threshold
+    of ``luminosity_threshold``, [12] the background flag, [13:16] pad."""
     rows = (torch.zeros((batch, 6), dtype=torch.float32, device=device)
             if stain_matrix is None
             else _per_tile(stain_matrix, 6, batch, device))
@@ -893,21 +910,29 @@ def macenko_augment_ref(rgb, alpha, beta, **kw):
 def _aug_launch(x, planar: bool, alpha, beta,
                 luminosity_threshold: float = 0.8,
                 angular_percentile: float = 99.0, regularizer: float = 0.01,
-                augment_background: bool = False, n_bisect: int = 14):
+                augment_background: bool = False, n_bisect: int = 14,
+                g: int | None = None):
+    """K6 on CUDA tiles at :func:`cluster_plan`'s G (``g`` forces it); alpha
+    and beta by pointer and stride (:func:`_pointer_arg`)."""
     global aug_launches
     from stainlib_tpu_torch.kernels import _build
 
     B, dev = x.shape[0], x.device
     n_pix = _n_pix(x, planar)
-    scal = _augment_scalars(None, alpha, beta, regularizer,
-                            luminosity_threshold, augment_background, B, dev)
+    plan = cluster_plan(n_pix, "K6", g, B, sm_count(dev))
+    scratch = stage_scratch(plan, B, dev)
+    (al, al_stride), (be, be_stride) = (_pointer_arg(alpha, 2, B, dev),
+                                        _pointer_arg(beta, 2, B, dev))
     out = torch.empty_like(x)
     pix_stride, ch_stride = (1, n_pix) if planar else (3, 1)
-    _build.launch("augment_launch", dev, x.data_ptr(),
-                  out.data_ptr(), scal.data_ptr(), _tables(dev).data_ptr(),
-                  B, n_pix, pix_stride, ch_stride,
+    _build.launch("augment_launch", dev, x.data_ptr(), out.data_ptr(),
+                  al.data_ptr(), al_stride, be.data_ptr(), be_stride,
+                  _tables(dev).data_ptr(), B, n_pix, pix_stride, ch_stride,
+                  _y_threshold(luminosity_threshold), regularizer,
+                  int(augment_background),
                   (100.0 - angular_percentile) / 100.0,
-                  angular_percentile / 100.0, max(n_bisect - 4, 8))
+                  angular_percentile / 100.0, max(n_bisect - 4, 8), *plan,
+                  None if scratch is None else scratch.data_ptr())
     aug_launches += 1
     return out
 
@@ -924,7 +949,10 @@ def macenko_augment_planar(rgb_planar, alpha, beta,
     ``stain_augment_pop`` does. Per tile: the Macenko estimate on the whole
     tile (angle bisection ``max(n_bisect - 4, 8)`` rounds), the exact
     lasso, tissue-gated ``C*alpha+beta``, reconstruction through the tile's
-    own rows. The JAX signature's ``interpret`` has no counterpart here."""
+    own rows. On the card each tile is one cluster of :func:`cluster_plan`'s
+    G blocks, and float32 draws already on the tiles' device reach the
+    kernel by their own pointer. The JAX signature's ``interpret`` has no
+    counterpart here."""
     _check(rgb_planar, planar=True)
     kw = dict(luminosity_threshold=luminosity_threshold,
               angular_percentile=angular_percentile, regularizer=regularizer,

@@ -1,6 +1,6 @@
 """The hand-written CUDA stain-augmentation kernels (K6 fused Macenko
-augment, K7 augment apply) against their plain PyTorch versions, and the
-augmentation routes on the card.
+augment, one thread-block cluster per tile; K7 augment apply) against their
+plain PyTorch versions, and the augmentation routes on the card.
 
 Needs a CUDA device (marker ``cuda``; every test skips without one). The
 card has no jax, so this file imports only torch, numpy and the port. On
@@ -67,6 +67,84 @@ def test_k6_k7_match_plain_versions(cuda, side, batch, background):
                        fs.from_planar(k7, side, side))
     assert (mf.aug_launches, mf.augment_launches) == (before[0] + 2,
                                                       before[1] + 2)
+
+
+def _tiles_with_white(batch, side, seed, device):
+    """``batch`` H&E tiles; of three, the second with its upper half white
+    and the third all white (an empty tissue mask)."""
+    tiles = he_batch(batch, side, side, seed=seed)
+    if batch >= 3:
+        tiles[1, : side // 2] = 255
+        tiles[2] = 255
+    return torch.from_numpy(tiles).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("background", [False, True])
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("side", [256, 512])
+def test_k6_cluster_equals_plain_at_every_cluster_size(cuda, side, batch,
+                                                       background):
+    """K6's bytes equal the plain version's at each cluster size G (forced
+    through ``cluster_plan``'s ``g``), interleaved and planar, staged in
+    shared memory or, where a block cannot hold its slice (the small G), in
+    device memory, with a half-white and an all-white tile in a batch of
+    three; the plan's own G gives the same bytes, twice."""
+    rgb = _tiles_with_white(batch, side, 140, cuda)
+    planar = fs.to_planar(rgb).contiguous()
+    alpha, beta = _draws(batch, 141, cuda)
+    kw = dict(augment_background=background)
+    want = mf.macenko_augment_ref(rgb, alpha, beta, **kw)
+    want_planar = fs.to_planar(want)
+    for g in mf.CLUSTER_SIZES:
+        got = mf._aug_launch(rgb, False, alpha, beta, g=g, **kw)
+        assert torch.equal(got, want), (g, int(
+            (got.int() - want.int()).abs().max()))
+        assert torch.equal(mf._aug_launch(planar, True, alpha, beta, g=g,
+                                          **kw), want_planar), g
+    got = mf.macenko_augment(rgb, alpha, beta, **kw)
+    assert torch.equal(got, want)
+    assert torch.equal(mf.macenko_augment(rgb, alpha, beta, **kw), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,side,g,shared", [
+    (1, 256, 16, True), (3, 256, 16, True), (70, 256, 2, False),
+    (12, 512, 16, False)])
+def test_k6_plan_follows_the_batch(cuda, batch, side, g, shared):
+    """One image and three of 256^2 run at the plan's G for their batch (16
+    blocks per tile, staged in shared memory), 70 tiles as two blocks per
+    tile staged in device memory, 12 of 512^2 as 16 blocks per tile staged
+    in device memory, and give the bytes of G = 1; a tile's output does not
+    depend on the batch it came in."""
+    rgb = torch.from_numpy(he_batch(batch, side, side, seed=142)).to(cuda)
+    alpha, beta = _draws(batch, 143, cuda)
+    plan = mf.cluster_plan(side * side, "K6", batch=batch)
+    assert plan.g == g and (plan.smem > 0) == shared
+    before = mf.aug_launches
+    got = mf.macenko_augment(rgb, alpha, beta)
+    assert mf.aug_launches == before + 1
+    assert torch.equal(got, mf._aug_launch(rgb, False, alpha, beta, g=1))
+    assert torch.equal(got, mf.macenko_augment_ref(rgb, alpha, beta))
+    one = mf.macenko_augment(rgb[-1:].contiguous(), alpha[-1:], beta[-1:])
+    assert torch.equal(one[0], got[-1])
+
+
+@pytest.mark.cuda
+def test_k6_argument_forms(cuda):
+    """numpy, list and CPU-tensor draws, shared or per tile, give the bytes
+    of the CUDA tensors the kernel reads by their own pointer."""
+    rgb = torch.from_numpy(he_batch(3, 128, 128, seed=144)).to(cuda)
+    alpha, beta = _draws(3, 145, cuda)
+    want = mf.macenko_augment(rgb, alpha, beta)
+    for conv in (lambda t: t.cpu().numpy(), lambda t: t.cpu().tolist(),
+                 lambda t: t.cpu(), lambda t: t.double()):
+        assert torch.equal(mf.macenko_augment(rgb, conv(alpha), conv(beta)),
+                           want)
+    shared = mf.macenko_augment(rgb, alpha[1], beta[1])
+    assert torch.equal(shared, mf.macenko_augment(
+        rgb, alpha[1].expand(3, 2), beta[1].expand(3, 2)))
+    assert torch.equal(shared[1], want[1])
 
 
 def _rows(n, seed, device):

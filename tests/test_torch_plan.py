@@ -1,10 +1,11 @@
 """The cluster plan of the staged kernels K2 (Vahadane normalize), K4
-(Macenko fit), K1 (Macenko normalize) and K8 (the Vahadane dictionary):
-for every estimation sample the routes admit, a cluster size of at most
-16 blocks, shared memory within one block's 227 KB, and slices that
-together cover the sample; larger samples staged in device memory. K1's
-and K8's plans also weigh the batch against the card's block slots, as
-the plan of K5 (Reinhard) does. Pure Python: no card needed.
+(Macenko fit), K1 (Macenko normalize), K8 (the Vahadane dictionary), K6
+(the fused Macenko augment) and K9 (the fixed-matrix normalize): for every
+estimation sample the routes admit, a cluster size of at most 16 blocks,
+shared memory within one block's 227 KB, and slices that together cover
+the sample; larger samples staged in device memory. The plans of K1, K8,
+K6 and K9 also weigh the batch against the card's block slots, as the plan
+of K5 (Reinhard) does. Pure Python: no card needed.
 """
 
 import pytest
@@ -74,12 +75,15 @@ def test_k2_plan_at_the_api_shapes():
     assert mf.cluster_plan(262144, "K2") == (16, 16384, 192 * 1024)
 
 
-@pytest.mark.parametrize("kernel", ["K2", "K4", "K1", "K8"])
+BATCHED = ("K1", "K8", "K6", "K9")  # chunks dealt in turns, the batch rule
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K4", "K1", "K8", "K6", "K9"])
 def test_forced_cluster_sizes(kernel):
     """``g`` forces G, whatever the batch; a slice that fits no block's
     shared memory is staged in device memory; sizes outside 1..16 and
     other kernels are refused."""
-    chunk = 512 if kernel in ("K1", "K8") else 1
+    chunk = 512 if kernel in BATCHED else 1
     for n in (8192, 32768, 65536, 262144):
         for g in mf.CLUSTER_SIZES:
             plan = mf.cluster_plan(n, kernel, g)
@@ -92,15 +96,15 @@ def test_forced_cluster_sizes(kernel):
         with pytest.raises(ValueError, match="cluster size"):
             mf.cluster_plan(8192, kernel, g)
     with pytest.raises(ValueError, match="no cluster plan"):
-        mf.cluster_plan(8192, "K9")
+        mf.cluster_plan(8192, "K3")
 
 
-@pytest.mark.parametrize("kernel", ["K2", "K4", "K1", "K8"])
+@pytest.mark.parametrize("kernel", ["K2", "K4", "K1", "K8", "K6", "K9"])
 def test_plan_stages_large_samples_in_device_memory(kernel):
     """A sample over 16 blocks' shared memory (1024^2 at fs=1, 293,547
     pixels) runs as a cluster of 16 staged in a device-memory scratch
     buffer of 12 bytes per sample pixel; one pixel less fits."""
-    chunk = 512 if kernel in ("K1", "K8") else 1
+    chunk = 512 if kernel in BATCHED else 1
     limit = 16 * ((BLOCK_BYTES - mf._SMEM_STATIC) // (12 * chunk) * chunk)
     for n in (limit + 1, 1024 * 1024):
         plan = mf.cluster_plan(n, kernel, batch=3)
@@ -119,38 +123,76 @@ def test_plan_stages_large_samples_in_device_memory(kernel):
 BATCHES = (1, 2, 3, 4, 8, 16, 17, 32, 64, 66, 67, 100, 128, 132, 133, 256)
 
 
+def _check_batch_rule(kernel, n, batch):
+    """The batch rule's plan for ``batch`` tiles of ``n`` sample pixels:
+    slices of whole chunks that cover the sample, shared memory within one
+    block's maximum or a scratch buffer of 12 bytes per staged pixel; the
+    largest G that gives each block an SM of its own, in shared memory
+    wherever some such G allows it; otherwise that G or two blocks per tile
+    (one for a sample under 32,768 pixels), whichever is more, staged in
+    device memory; and no shared-memory slice that keeps a second block off
+    its SM unless the cluster has the card to itself. Wherever the rule
+    stages in device memory, K6 stages 16 blocks per tile if those fit two
+    to an SM, and K9 slices of at most 16,384 pixels."""
+    plan = mf.cluster_plan(n, kernel, batch=batch)
+    _check(plan, n, 512, by_rule=True)
+    assert mf.cluster_plan(n, kernel, batch=batch, sms=132) == plan
+    buf = mf.stage_scratch(plan, batch, "cpu")
+    if plan.smem:
+        assert buf is None
+    else:
+        assert buf.numel() * 4 == batch * plan.g * 12 * plan.slice
+    own = [g for g in mf.CLUSTER_SIZES if batch * g <= 132
+           and 512 * g < n + 512]
+    alone = [g for g in own if mf.cluster_plan(n, kernel, g).smem]
+    if kernel == "K9" and not plan.smem:
+        g = min([g for g in mf.CLUSTER_SIZES
+                 if mf.cluster_plan(n, kernel, g).slice <= 16384] + [16])
+        assert plan == (g, mf.cluster_plan(n, kernel, g).slice, 0)
+    elif (kernel == "K6" and not plan.smem and 16 * batch <= 264
+            and n > 15 * 512):
+        assert plan == (16, mf.cluster_plan(n, kernel, 16).slice, 0)
+    elif alone:
+        assert plan.g == alone[-1]
+    else:
+        g = max(own + [2 if n >= 32768 else 1])
+        assert plan == (g, mf.cluster_plan(n, kernel, g).slice, 0)
+    if plan.smem and plan.g > 4 and batch * plan.g > 66:
+        assert 2 * (plan.smem + mf._SMEM_STATIC) <= SM_BYTES
+    return plan
+
+
 @pytest.mark.parametrize("fit_stride", [1, 2])
 @pytest.mark.parametrize("kernel", ["K1", "K8"])
 def test_batched_plan_covers_the_routes(kernel, fit_stride):
     """K1's and K8's plan for every square tile the routes admit (64^2 to
-    512^2) in batches of 1 to 256: slices of whole chunks that cover the
-    sample, shared memory within one block's maximum or a scratch buffer of
-    12 bytes per staged pixel, and the batch rule: the largest G that gives
-    each block an SM of its own, in shared memory wherever some such G
-    allows it; otherwise that G or two blocks per tile (one for a sample
-    under 32,768 pixels), whichever is more, staged in device memory; and
-    no shared-memory slice that keeps a second block off its SM unless the
-    cluster has the card to itself."""
+    512^2) in batches of 1 to 256, by the batch rule
+    (:func:`_check_batch_rule`)."""
     for n in _k2_samples(fit_stride):
         for batch in BATCHES:
-            plan = mf.cluster_plan(n, kernel, batch=batch)
-            _check(plan, n, 512, by_rule=True)
-            assert mf.cluster_plan(n, kernel, batch=batch, sms=132) == plan
-            buf = mf.stage_scratch(plan, batch, "cpu")
-            if plan.smem:
-                assert buf is None
-            else:
-                assert buf.numel() * 4 == batch * plan.g * 12 * plan.slice
-            own = [g for g in mf.CLUSTER_SIZES if batch * g <= 132
-                   and 512 * g < n + 512]
-            alone = [g for g in own if mf.cluster_plan(n, kernel, g).smem]
-            if alone:
-                assert plan.g == alone[-1]
-            else:
-                g = max(own + [2 if n >= 32768 else 1])
-                assert plan == (g, mf.cluster_plan(n, kernel, g).slice, 0)
-            if plan.smem and plan.g > 4 and batch * plan.g > 66:
-                assert 2 * (plan.smem + mf._SMEM_STATIC) <= SM_BYTES
+            _check_batch_rule(kernel, n, batch)
+
+
+def _whole_tiles():
+    """Pixels of the tiles ``stain_augment``'s fused route (K6) and
+    ``vahadane_normalize_planar_2k`` (K9) take: H*W a multiple of 128, up
+    to 512^2; squares 64^2..512^2 and some oblong shapes."""
+    sides = [(s, s) for s in range(64, 513, 16)]
+    sides += [(128, 192), (256, 384), (512, 256), (100, 128), (384, 512)]
+    return sorted({h * w for h, w in sides if (h * w) % 128 == 0})
+
+
+@pytest.mark.parametrize("kernel", ["K6", "K9"])
+def test_k6_k9_plans_cover_their_routes(kernel):
+    """K6 and K9 estimate over the whole tile: their plan for every tile
+    their routes take, in batches of 1 to 256, follows the batch rule; one
+    image of 256^2 or 512^2 spreads over 16 SMs, in shared memory."""
+    for n in _whole_tiles():
+        for batch in BATCHES:
+            _check_batch_rule(kernel, n, batch)
+    for side in (256, 512):
+        assert mf.cluster_plan(side * side, kernel, batch=1) == (
+            16, side * side // 16, 12 * side * side // 16)
 
 
 def test_batched_plan_follows_the_card():
@@ -170,7 +212,16 @@ def test_batched_plan_follows_the_card():
     ("K1", 131072, {1: "16s", 4: "16s", 16: "8d", 128: "2d"}),
     ("K8", 262144, {1: "16s", 4: "16s", 16: "8d", 128: "2d"}),
     ("K1", 16384, {1: "16s", 128: "1s", 256: "1d"}),
-], ids=["K1-256-fs2", "K8-256-fs1", "K1-512-fs2", "K8-512-fs1", "K1-128-fs1"])
+    ("K6", 65536, {1: "16s", 4: "16s", 16: "8s", 64: "2d", 96: "2d",
+                   128: "2d", 256: "2d"}),
+    ("K9", 65536, {1: "16s", 4: "16s", 16: "8s", 64: "4d", 96: "4d",
+                   128: "4d", 256: "4d"}),
+    ("K6", 262144, {1: "16s", 4: "16s", 8: "16d", 12: "16d", 16: "16d",
+                    17: "4d", 128: "2d"}),
+    ("K9", 262144, {1: "16s", 4: "16s", 8: "16d", 12: "16d", 16: "16d",
+                    17: "16d", 128: "16d"}),
+], ids=["K1-256-fs2", "K8-256-fs1", "K1-512-fs2", "K8-512-fs1", "K1-128-fs1",
+        "K6-256", "K9-256", "K6-512", "K9-512"])
 def test_batched_plan_at_the_swept_shapes(kernel, n, want):
     """The plan at the shapes ``scripts/torch_cluster_sweep.py`` times: G,
     then ``s`` for shared memory or ``d`` for device memory."""

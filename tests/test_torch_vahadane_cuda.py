@@ -1,6 +1,6 @@
 """The hand-written CUDA Vahadane kernels (K2 fit+transform, K8
-dictionary) and the fixed-matrix apply kernel (K9) against their plain
-PyTorch versions.
+dictionary) and the fixed-matrix normalize kernel (K9), each one
+thread-block cluster per tile, against their plain PyTorch versions.
 
 Needs a CUDA device (marker ``cuda``; every test skips without one). The
 card has no jax, so this file imports only torch, numpy and the port. On
@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from stainlib_tpu_torch.kernels import _build
 from stainlib_tpu_torch.kernels import fused_stain as fs
 from stainlib_tpu_torch.kernels import macenko_fused as mf
 from stainlib_tpu_torch.kernels import vahadane_fused as vf
@@ -203,3 +204,109 @@ def test_k8_plan_follows_the_batch(cuda, batch, g, shared):
     assert torch.equal(got, vf.vahadane_stain_matrix_planar_ref(planar))
     one = vf.vahadane_stain_matrix_planar(planar[-1:].contiguous())
     assert torch.equal(one[0], got[-1])
+
+
+def _tiles_with_white(batch, side, seed, device):
+    """``batch`` H&E tiles; of three, the second with its upper half white
+    and the third all white (K8 gives it NaN rows, which K9 then reads)."""
+    tiles = he_batch(batch, side, side, seed=seed)
+    if batch >= 3:
+        tiles[1, : side // 2] = 255
+        tiles[2] = 255
+    return torch.from_numpy(tiles).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("side", [256, 512])
+def test_k9_cluster_equals_plain_at_every_cluster_size(cuda, side, batch):
+    """K9's bytes equal the plain version's at each cluster size G (forced
+    through ``cluster_plan``'s ``g``), planar and interleaved, staged in
+    shared or in device memory, given K8's per-tile rows (NaN for the
+    all-white tile of a batch of three); the plan's own G gives the same
+    bytes, twice."""
+    M, mc = _params(cuda)
+    rgb = _tiles_with_white(batch, side, 150, cuda)
+    planar = fs.to_planar(rgb).contiguous()
+    m = vf.vahadane_stain_matrix_planar_ref(planar)
+    assert torch.isnan(m).any() == (batch >= 3)
+    want = fs.fused_normalize_planar_ref(planar, m, M, mc)
+    want_rgb = fs.from_planar(want, side, side)
+    for g in mf.CLUSTER_SIZES:
+        got = fs._launch(planar, True, m, M, mc, g=g)
+        assert torch.equal(got, want), (g, int(
+            (got.int() - want.int()).abs().max()))
+        assert torch.equal(fs._launch(rgb, False, m, M, mc, g=g),
+                           want_rgb), g
+    got = fs.fused_normalize_planar(planar, m, M, mc)
+    assert torch.equal(got, want)
+    assert torch.equal(fs.fused_normalize_planar(planar, m, M, mc), got)
+    assert torch.equal(fs.fused_normalize(rgb, m, M, mc), want_rgb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,side,g,shared", [
+    (1, 256, 16, True), (3, 256, 16, True), (70, 256, 4, False),
+    (12, 512, 16, False)])
+def test_k9_plan_follows_the_batch(cuda, batch, side, g, shared):
+    """One image and three of 256^2 run at the plan's G for their batch (16
+    blocks per tile, staged in shared memory), 70 tiles as four blocks per
+    tile staged in device memory, 12 of 512^2 as 16 blocks per tile staged
+    in device memory, and give the bytes of G = 1; a tile's output does not
+    depend on the batch it came in."""
+    M, mc = _params(cuda)
+    rgb = torch.from_numpy(he_batch(batch, side, side, seed=151)).to(cuda)
+    planar = fs.to_planar(rgb).contiguous()
+    m = vf.vahadane_stain_matrix_planar_ref(planar)
+    plan = mf.cluster_plan(side * side, "K9", batch=batch)
+    assert plan.g == g and (plan.smem > 0) == shared
+    before = fs.launches
+    got = fs.fused_normalize_planar(planar, m, M, mc)
+    assert fs.launches == before + 1
+    assert torch.equal(got, fs._launch(planar, True, m, M, mc, g=1))
+    assert torch.equal(got, fs.fused_normalize_planar_ref(planar, m, M, mc))
+    one = fs.fused_normalize_planar(planar[-1:].contiguous(), m[-1:], M, mc)
+    assert torch.equal(one[0], got[-1])
+
+
+@pytest.mark.cuda
+def test_k9_argument_forms(cuda):
+    """numpy, list and CPU-tensor arguments, shared or per tile, give the
+    bytes of the CUDA tensors the kernel reads by their own pointer."""
+    M, mc = _params(cuda)
+    rgb = torch.from_numpy(he_batch(3, 128, 128, seed=152)).to(cuda)
+    planar = fs.to_planar(rgb).contiguous()
+    m = vf.vahadane_stain_matrix_planar_ref(planar)
+    want = fs.fused_normalize_planar(planar, m, M, mc)
+    for conv in (lambda t: t.cpu().numpy(), lambda t: t.cpu().tolist(),
+                 lambda t: t.cpu(), lambda t: t.double()):
+        assert torch.equal(fs.fused_normalize_planar(
+            planar, conv(m), conv(M), conv(mc)), want)
+    per_tile = fs.fused_normalize_planar(planar, m, M.expand(3, 2, 3),
+                                         mc.expand(3, 2))
+    assert torch.equal(per_tile, want)
+
+
+@pytest.mark.cuda
+def test_k9_failed_launch_raises_without_fallback(cuda, monkeypatch):
+    """A refused launch raises; nothing falls back to the plain version,
+    and no launch is counted."""
+
+    class RefusingLibrary:
+        def __getattr__(self, name):
+            if name == "stain_error_string":
+                return lambda err: b"refused for the test"
+            return lambda *args: 1  # cudaErrorInvalidValue
+
+    M, mc = _params(cuda)
+    rgb = torch.from_numpy(he_batch(2, 256, 256, seed=153)).to(cuda)
+    planar = fs.to_planar(rgb).contiguous()
+    m = M.expand(2, 2, 3)
+    _build.load_library()
+    monkeypatch.setattr(_build, "_lib", RefusingLibrary())
+    before = fs.launches
+    with pytest.raises(RuntimeError, match="^fused_normalize_launch failed"):
+        fs.fused_normalize_planar(planar, m, M, mc)
+    with pytest.raises(RuntimeError, match="^fused_normalize_launch failed"):
+        fs.fused_normalize(rgb, m, M, mc)
+    assert fs.launches == before
