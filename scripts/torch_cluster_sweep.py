@@ -1,5 +1,5 @@
-"""Time the thread-block-cluster kernels K1, K2, K4, K6, K8 and K9 at every
-cluster size and over the batch.
+"""Time the thread-block-cluster kernels K1, K2, K4, K6, K8, K9 and K10 at
+every cluster size and over the batch.
 
     python scripts/torch_cluster_sweep.py [--kernels K6 K9 ...]
 
@@ -17,6 +17,10 @@ On one GPU, at each cluster size G in 1, 2, 4, 8, 16, forced through
 * K6 (``macenko_augment``, the default knobs) and K9
   (``fused_normalize_planar``, given the plain K8's per-tile rows), whose
   sample is the whole tile, on the same 256x256 and 512x512 batches;
+* K10 (``eigenplane``, which stages nothing; its G forced through
+  ``eigenplane_plan``'s ``g``) on the same 256x256 batches and on 1, 4 and
+  16 tiles of 512x512: the shapes ``eigenplane_plan``'s rule is taken
+  from;
 * K4 (``macenko_fit_planar``) on the 256x256 grid subsample of a 2048x2048
   field;
 * K2 and K4 on tiles whose sample no cluster's shared memory holds (16
@@ -36,7 +40,7 @@ staging, the plan's choice, its time over the row's best, the bytes of its
 device-memory stage and the peak of device memory allocated during one
 call over what was allocated before it), the card's name and power limit, and as the last line a JSON object with the same
 figures. ``--kernels`` restricts the run to the shapes of the kernels it
-names (default: all six). Exits non-zero without a CUDA device.
+names (default: all seven). Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -61,7 +65,8 @@ BATCHES_LARGE, SIDE_LARGE = (1, 4, 16, 128), 512
 SMALL = ((128, 128), (128, 192))
 DEVICE_NAME = {"K1": "macenko_apply_kernel", "K2": "vahadane_normalize_kernel",
                "K4": "macenko_fit_kernel", "K8": "vahadane_dict_kernel",
-               "K6": "macenko_augment_kernel", "K9": "fused_normalize_kernel"}
+               "K6": "macenko_augment_kernel", "K9": "fused_normalize_kernel",
+               "K10": "eigenplane_kernel"}
 BATCHED = ("K1", "K6", "K8", "K9")  # the kernels with the batch rule
 
 
@@ -132,6 +137,13 @@ def main() -> int:
                 lambda g: fs._launch(planar, True, rows, M, mc, g=g),
                 lambda got: torch.equal(got, want))
 
+    def k10(x):
+        planar = fs.to_planar(x).contiguous()
+        want = mf.eigenplane_ref(planar)
+        return (x.shape[1] * x.shape[2], "K10", x.shape[0],
+                lambda g: mf._eigen_launch(planar, g=g),
+                lambda got: torch.equal(got, want))
+
     def k4(planar):
         want = mf.macenko_fit_planar_ref(planar)
         return (planar.shape[2] * planar.shape[3], "K4", planar.shape[0],
@@ -153,6 +165,8 @@ def main() -> int:
         add(f"K8 {label} fs=1 it=12 nb=14", "K8", k8, x)
         add(f"K6 {label} nb=14", "K6", k6, x)
         add(f"K9 {label}", "K9", k9, x)
+        if x.shape[1] == SIDE or x.shape[0] <= 16:
+            add(f"K10 {label}", "K10", k10, x)
         if x.shape[1] == SIDE or x.shape[0] == 16:
             add(f"K2 {label} fs=2 it=8 nb=10", "K2", k2, x, VFAST)
     for h, w in SMALL:
@@ -169,6 +183,15 @@ def main() -> int:
               if kern in BATCHED for g in mf.CLUSTER_SIZES
               if mf.cluster_plan(n, kern, g, b).smem]
     sms = mf.sm_count(dev)
+
+    def plan_of(n, kern, b, g=None):
+        """(G, stage) of the plan, forced to ``g`` where given: the stage
+        ``s`` (shared memory), ``d`` (device memory), or ``""`` for K10,
+        which stages nothing."""
+        if kern == "K10":
+            return mf.eigenplane_plan(b, n, sms, g), ""
+        p = mf.cluster_plan(n, kern, g, b, sms)
+        return p.g, "s" if p.smem else "d"
 
     def peak_bytes(run):
         """Device memory allocated at the peak of one ``run(None)`` (the
@@ -195,17 +218,18 @@ def main() -> int:
     summary = {"card": smi, "sms": sms, "reps": REPS, "variants": []}
     memory = {}
     for label, (n, kern, b, run, _) in shapes.items():
-        pick = mf.cluster_plan(n, kern, batch=b, sms=sms)
-        scratch = 0 if pick.smem else b * pick.g * mf.STAGE_BYTES * pick.slice
+        scratch = 0
+        if kern != "K10":
+            pick = mf.cluster_plan(n, kern, batch=b, sms=sms)
+            if not pick.smem:
+                scratch = b * pick.g * mf.STAGE_BYTES * pick.slice
         memory[label] = (scratch, peak_bytes(run))
     for label, g, forced in cases:
         n, kern, b = shapes[label][:3]
-        p, pick = mf.cluster_plan(n, kern, g, b), mf.cluster_plan(
-            n, kern, batch=b, sms=sms)
-        if forced:
-            p = p._replace(smem=0)
-        where = (f"{p.smem} B shared per block" if p.smem else
-                 "staged in device memory")
+        stage = "d" if forced else plan_of(n, kern, b, g)[1]
+        pick_g, pick_stage = plan_of(n, kern, b)
+        where = {"s": "staged in shared memory",
+                 "d": "staged in device memory", "": "no stage"}[stage]
         (da, db), (ea, eb) = alone[(label, g, forced)], events[(label, g,
                                                                 forced)]
         fmt = "/".join("not measured" if d is None else f"{d:.4f}"
@@ -213,11 +237,10 @@ def main() -> int:
         print(f"{label} at G={g} ({n} sample px, {where}): equal to plain; "
               f"alone {fmt} ms (profiler device time per call, {REPS} "
               f"calls); {ea:.3f}/{eb:.3f} ms by events (median of {REPS}); "
-              f"in order then reversed; the plan picks G={pick.g}"
-              f"{'' if pick.smem else ', staged in device memory'}",
-              flush=True)
-        summary["variants"].append(dict(shape=label, g=g, smem=p.smem,
-                                        plan_g=pick.g, plan_smem=pick.smem,
+              f"in order then reversed; the plan picks G={pick_g}"
+              f"{pick_stage}", flush=True)
+        summary["variants"].append(dict(shape=label, g=g, stage=stage,
+                                        plan_g=pick_g, plan_stage=pick_stage,
                                         alone_ms=[da, db], ms=[ea, eb],
                                         plan_scratch_bytes=memory[label][0],
                                         plan_peak_bytes=memory[label][1]))
@@ -229,20 +252,20 @@ def main() -> int:
 
 def print_table(variants) -> None:
     """One row per shape: the time alone (ms, the lower reading) at each G,
-    staged in shared memory (``s``) or in device memory (``d``), then the
-    plan's choice, its time over the row's best, and the plan's
-    device-memory stage and peak allocation during a call in MB."""
-    def col(g, smem):
-        return f"{g}{'s' if smem else 'd'}"
-
-    cols = [col(g, smem) for g in (1, 2, 4, 8, 16) for smem in (1, 0)]
+    staged in shared memory (``s``) or in device memory (``d``), or with no
+    stage (K10), then the plan's choice, its time over the row's best, and
+    the plan's device-memory stage and peak allocation during a call in
+    MB."""
+    order = [f"{g}{st}" for g in (1, 2, 4, 8, 16) for st in ("", "s", "d")]
     rows, picks, memory = {}, {}, {}
     for v in variants:
         read = [t for t in v["alone_ms"] if t is not None]
         if read:
-            rows.setdefault(v["shape"], {})[col(v["g"], v["smem"])] = min(read)
-        picks[v["shape"]] = col(v["plan_g"], v["plan_smem"])
+            rows.setdefault(v["shape"], {})[f"{v['g']}{v['stage']}"] = min(
+                read)
+        picks[v["shape"]] = f"{v['plan_g']}{v['plan_stage']}"
         memory[v["shape"]] = (v["plan_scratch_bytes"], v["plan_peak_bytes"])
+    cols = [c for c in order if any(c in row for row in rows.values())]
     print("| Shape, alone ms | " + " | ".join(cols)
           + " | plan | plan / best | stage MB | peak MB |")
     print("|---" * (len(cols) + 5) + "|")

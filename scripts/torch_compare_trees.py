@@ -8,11 +8,12 @@ own process on the same inputs (synthetic H&E tiles from
 every kernel's output, then prints one line per kernel: how many output
 values differ between the two trees and by how much, and, in each tree,
 whether the kernel equals its plain PyTorch version on the card. The
-kernels: all ten, K1, K2, K4, K5, K6, K7, K8, K9 and K10 at 256 tiles of
-256x256, K3 and K7 on one 2048x2048 field, K4 also on that field's 256x256
-grid subsample (the tiled route's shape), K6 and K9 also on one 256x256
-tile and on 16 tiles of 512x512 (the batches their cluster plan treats
-differently). ``OTHER_TREE`` is a checkout of
+kernels: all ten, K1, K2, K3, K4, K5, K6, K7, K8, K9 and K10 at 256 tiles
+of 256x256, K3 and K7 on one 2048x2048 field, K4 also on that field's
+256x256 grid subsample (the tiled route's shape), K6, K9 and K10 also on
+one 256x256 tile and on 16 tiles of 512x512 (the batches their cluster
+plans treat differently). Besides the counts it reports each kernel's
+largest difference from its plain version (K10's budget is 1e-6). ``OTHER_TREE`` is a checkout of
 another commit, e.g.
 ``git archive <commit> | tar -x -C .runs/parent``. Exits non-zero without
 a CUDA device. The last line is a JSON object with the same figures.
@@ -81,6 +82,7 @@ def dump(tree: Path, out: Path) -> None:
     big = torch.from_numpy(synth.he_batch(16, 512, 512, seed=SEED + 2)).to(dev)
     big_planar = fs.to_planar(big).contiguous()
     m8_big = vf.vahadane_stain_matrix_planar_ref(big_planar)
+    mc_src = (mc * 1.1).expand(B, 2).contiguous()
 
     def fit(fn, x):
         return torch.cat([y.reshape(x.shape[0], -1) for y in fn(x)], 1)
@@ -106,6 +108,11 @@ def dump(tree: Path, out: Path) -> None:
         "K3": (lambda: mf.normalize_with_matrix(field, M, mc * 1.1, M, mc),
                lambda: mf.normalize_with_matrix_ref(field, M, mc * 1.1, M,
                                                     mc)),
+        "K3 B=256": (
+            lambda: mf.normalize_with_matrix_planar(planar, m8_plain, mc_src,
+                                                    M, mc),
+            lambda: mf.normalize_with_matrix_planar_ref(planar, m8_plain,
+                                                        mc_src, M, mc)),
         "K4": (lambda: fit(mf.macenko_fit_planar, planar),
                lambda: fit(mf.macenko_fit_planar_ref, planar)),
         "K4 subsample": (lambda: fit(mf.macenko_fit_planar, sub),
@@ -128,6 +135,10 @@ def dump(tree: Path, out: Path) -> None:
                                                beta[:1])),
         "K10": (lambda: mf.eigenplane(planar),
                 lambda: mf.eigenplane_ref(planar)),
+        "K10 B=1": (lambda: mf.eigenplane(planar[:1]),
+                    lambda: mf.eigenplane_ref(planar[:1])),
+        "K10 B=16 512^2": (lambda: mf.eigenplane(big_planar),
+                           lambda: mf.eigenplane_ref(big_planar)),
     }
     res = {name: {"kernel": k().cpu(), "plain": p().cpu()}
            for name, (k, p) in cases.items()}
@@ -171,16 +182,17 @@ def main() -> int:
     summary = {"card": smi, "kernels": {}}
     for name in this:
         n, mx = _diff(this[name]["kernel"], other[name]["kernel"])
-        n_this, _ = _diff(this[name]["kernel"], this[name]["plain"])
+        n_this, mx_this = _diff(this[name]["kernel"], this[name]["plain"])
         n_other, _ = _diff(other[name]["kernel"], other[name]["plain"])
         total = this[name]["kernel"].numel()
         summary["kernels"][name] = dict(
             values=total, differ_between_trees=n, max_abs_diff=mx,
-            this_vs_plain_differ=n_this, other_vs_plain_differ=n_other)
+            this_vs_plain_differ=n_this, this_vs_plain_max=mx_this,
+            other_vs_plain_differ=n_other)
         print(f"{name}: {n} of {total} values differ between the trees "
               f"(share {n / total:.3e}, max |diff| {mx:.6g}); kernel vs "
-              f"plain differs at {n_this} (this tree), {n_other} (other)",
-              flush=True)
+              f"plain differs at {n_this} (this tree, max |diff| "
+              f"{mx_this:.6g}), {n_other} (other)", flush=True)
     print(json.dumps(summary), flush=True)
     return 0
 

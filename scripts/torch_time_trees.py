@@ -22,8 +22,11 @@ makes:
   tiled route's shape; each also as the kernel alone;
 * ``augment_with_matrix_planar`` (kernel K7) on the 256 tiles and
   ``augment_with_matrix`` on the field, ``normalize_with_matrix`` (K3) on
-  the field, and ``reinhard_normalize`` (K5) on the 256 tiles, on one
-  256x256 tile and on 16 tiles of 512x512; each also as the kernel alone;
+  the field and ``normalize_with_matrix_planar`` on the 256 tiles (per-tile
+  source rows and maxC), ``eigenplane`` (K10) on the 256 tiles, on one
+  256x256 tile and on 16 tiles of 512x512, and ``reinhard_normalize`` (K5)
+  on the 256 tiles, on one 256x256 tile and on 16 tiles of 512x512; each
+  also as the kernel alone;
 * ``StainAugmentor("macenko").pop()`` on one 256x256 image, on the host
   clock with a synchronize (the median of 64 pops after a warm-up);
 * the functional paths on the card: ``extractive.transform`` (Macenko) and
@@ -100,6 +103,7 @@ def measure(tree: Path, out: Path) -> None:
     planar_one = planar[:1].contiguous()
     planar_big = fs.to_planar(big).contiguous()
     m_src = M.expand(B, 2, 3).contiguous()
+    mc_src = (mc * 1.1).expand(B, 2).contiguous()
 
     def gen(k):
         return torch.Generator().manual_seed(SEED + k)
@@ -140,6 +144,12 @@ def measure(tree: Path, out: Path) -> None:
                                            beta[:1]),
         f"K3 normalize_with_matrix one {FIELD}^2 field":
             lambda: mf.normalize_with_matrix(field[None], M, mc * 1.1, M, mc),
+        f"K3 normalize_with_matrix_planar B={B} {SIDE}^2":
+            lambda: mf.normalize_with_matrix_planar(planar, m_src, mc_src, M,
+                                                    mc),
+        f"K10 eigenplane B={B} {SIDE}^2": lambda: mf.eigenplane(planar),
+        f"K10 eigenplane B=1 {SIDE}^2": lambda: mf.eigenplane(planar_one),
+        "K10 eigenplane B=16 512^2": lambda: mf.eigenplane(planar_big),
         f"K5 reinhard_normalize B={B} {SIDE}^2":
             lambda: rf.reinhard_normalize(batch, means, stds),
         f"K5 reinhard_normalize B=1 {SIDE}^2":
@@ -173,7 +183,7 @@ def measure(tree: Path, out: Path) -> None:
              "K6": "macenko_augment_kernel", "K9": "fused_normalize_kernel",
              "K2": "vahadane_normalize_kernel", "K4": "macenko_fit_kernel",
              "K7": "augment_apply_kernel", "K3": "matrix_apply_kernel",
-             "K5": "reinhard_kernel"}
+             "K5": "reinhard_kernel", "K10": "eigenplane_kernel"}
     for label, fn in list(cases.items()):
         k, _, rest = label.partition(" ")
         if k in alone:

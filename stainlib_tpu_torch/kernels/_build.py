@@ -83,12 +83,15 @@ _ARGTYPES = {
         _ptr],  # stream
     "eigenplane_launch": [
         _i32, _ptr, _ptr, _ptr,  # device, in, out, luts
-        _i32, _i32, _i32, _i32,  # batch, n_pix, pix/ch stride
-        _f32, _ptr],  # y_thr, stream
-    "matrix_normalize_launch": [
-        _i32, _ptr, _ptr, _ptr, _ptr,  # device, in, out, scal, lut
-        _i32, _i32, _i32, _i32,  # batch, n_pix, pix/ch stride
+        _i32, _i32, _f32, _i32,  # batch, n_pix, y_thr, G
         _ptr],  # stream
+    "matrix_normalize_launch": [
+        _i32, _ptr, _ptr,  # device, in, out
+        _ptr, _i32, _ptr, _i32, _ptr, _i32, _ptr, _i32,  # source rows,
+        #   source maxC, target rows, target maxC: each a pointer and a
+        #   per-image stride
+        _ptr, _i32, _i32, _i32,  # OD table, batch, n_pix, planar
+        _f32, _ptr],  # lam, stream
     "augment_launch": [
         _i32, _ptr, _ptr,  # device, in, out
         _ptr, _i32, _ptr, _i32,  # alpha, beta: pointer and per-tile stride

@@ -1,5 +1,5 @@
 // Fused Macenko kernels (sm_90a): the fit + transform (K1), the fit alone
-// (K4), the masked OD moments of the eigenplane (K10), the fixed-matrix
+// (K4), the eigenplane: masked OD moments and eigen-solve (K10), the fixed-matrix
 // apply (K3), and the stain-augmentation kernels: the fused augment (K6)
 // and the augment apply (K7).
 //
@@ -54,19 +54,35 @@
 // instead, by the same code. Rank 0 writes the 8 floats.
 //
 // eigenplane_kernel replaces eigenplane / _stats_kernel (:237-248,
-// :498-532): phase 1 alone, the ten moments (count, 3 sums, 6 second
-// moments, double-accumulated) per tile; the wrapper's torch glue makes
-// the covariance and the top-2 eigenplane. One pass over the tile: bound
-// by bytes and the two table gathers per channel.
+// :498-532): the ten masked OD moments (count, 3 sums, 6 second moments,
+// double-accumulated) per tile, then the glue the JAX package leaves to XLA:
+// np.cov's covariance and the top-2 eigenplane, sign-fixed. One pass over
+// the tile: bound by bytes (3 in per pixel), and by the double sums of the
+// tissue pixels. Design: one launch writes the (B, 3, 2) plane. A tile is
+// one thread-block cluster of G blocks (macenko_fused.eigenplane_plan: G
+// follows the batch against the card's block slots, 16 for one tile), each
+// reading its part of the tile 16 pixels per thread and step through three
+// 128-bit loads, OD and luminance term side by side in one 8-byte gather
+// per channel (K7's table), five of the nine double terms converted by
+// integer operations; the sums fold over the warps and the cluster's
+// ranks in ascending order (every G gives the same bits), and one thread
+// per tile runs the glue in float32 op for op as torch runs it on the card
+// (stain::eigenplane_from_moments), where torch took about a hundred
+// launches.
 //
 // matrix_apply_kernel replaces normalize_with_matrix_planar / the
 // _augment_kernel with estimate=False, recon_in_scal=True (:754-813,
 // :936-991): per pixel, K1's OD, the exact lasso against fixed source rows,
-// the rescale maxC_tgt/maxC_src (a per-image scalar, computed by the
-// wrapper), reconstruction through the target rows. No reduction, so it is
-// launched over (pixel chunks x images) rather than one block per tile:
-// a 2048^2 field is one image. Bound by bytes (3 in, 3 out per pixel) and
-// the per-pixel lasso and three expf.
+// the rescale maxC_tgt/maxC_src, reconstruction through the target rows.
+// Bound by the per-pixel arithmetic (the lasso, three expf) and 3 bytes in
+// and 3 out. Design: K7's persistent 1-D grid over (image, chunk) work
+// items (walk_items), so one large field and 65,536 small tiles alike fill
+// the card; the OD table in shared memory; 8 pixels per thread and step
+// (three 64-bit loads), with a scalar head and tail off the vector grid;
+// K1's apply body (stain::normalize_bytes: the lazy lasso, the
+// rescale, a one-instruction uint8 conversion). The per-image rows and maxC
+// arrive by pointer and stride, and the kernel takes each image's rescale
+// itself: the wrapper builds no table.
 //
 // macenko_augment_kernel replaces the Pallas TPU kernel
 // macenko_augment_planar / _augment_kernel with estimate=True (:754-813,
@@ -117,7 +133,7 @@ constexpr int kWarps = kThreads / 32;
 
 struct Args {
   const uint8_t* in;
-  void* out;          // u8 tiles (K1) or (B, 8) / (B, 10) f32 (K4, K10)
+  void* out;          // u8 tiles (K1, K6) or (B, 8) f32 (K4)
   const float* scal;  // (B, 8): target rows (6), maxC (2); K1 only
   const float* luts;  // (4, 256): OD, then 3 luminance terms
   int n_pix, pix_stride, ch_stride;
@@ -128,22 +144,6 @@ struct Args {
   float* scratch;  // K1, K4, K6: the blocks' stages in device memory, or
                    // nullptr
 };
-
-// K10: one block per tile, stain::masked_moments' buffers.
-struct Shared {
-  double dbuf[9 * kWarps];
-  float lut[4][256];
-  int ibuf[2 * kWarps];
-};
-
-__device__ __forceinline__ stain::Tile load_tile(const Args& a, Shared& sh) {
-  for (int i = threadIdx.x; i < 4 * 256; i += kThreads)
-    sh.lut[i >> 8][i & 255] = a.luts[i];
-  __syncthreads();
-  const size_t tile_off = (size_t)blockIdx.x * 3 * a.n_pix;
-  return stain::Tile{a.in + tile_off, sh.lut, a.n_pix, a.pix_stride,
-                     a.ch_stride, a.nblk, a.blk, a.stp, a.y_thr};
-}
 
 // K1, K4, K6: one cluster of G blocks per tile (blockIdx.x / G), the
 // bisection operands and the sample's bytes staged in `stage` (dynamic
@@ -208,51 +208,78 @@ __global__ void __launch_bounds__(kThreads, 2) macenko_fit_kernel(Args a) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 2) eigenplane_kernel(Args a) {
-  __shared__ Shared sh;
-  const stain::Tile t = load_tile(a, sh);
-  float st[10];
-  stain::masked_moments<kThreads>(t, sh.ibuf, sh.dbuf, st);
-  if (threadIdx.x == 0) {
-    float* out = static_cast<float*>(a.out) + blockIdx.x * 10;
-    for (int i = 0; i < 10; ++i) out[i] = st[i];
+// K10. One tile is one cluster of G blocks (macenko_fused.eigenplane_plan);
+// block `rank` reads part `rank` of the tile's 16-pixel groups, three 128-bit
+// loads each, and each pixel's OD and luminance term come from K7's paired
+// table. The ten moments (the count rides as a tenth double, exactly) fold
+// over the warps and then the cluster's ranks in ascending order, and thread
+// 0 of rank 0 turns them into the eigenplane (stain::eigenplane_from_moments).
+constexpr int kEigenW = 16;  // planar pixels per thread and step
+// Of the nine float terms per tissue pixel, the first kIntTerms reach
+// double through integer operations (stain::pos_to_double), the rest
+// through the conversion unit, so the two pipes share the work: on an H100
+// 5 of 9 ran faster than 0, 3, 7 or 9 at 256 tiles of 256^2.
+constexpr int kIntTerms = 5;
+
+struct EigenArgs {
+  const uint8_t* in;  // (B, 3, n_pix) planar
+  float* out;         // (B, 3, 2)
+  const float* luts;  // (4, 256): OD, then 3 luminance terms
+  int n_pix;
+  float y_thr;
+  bool vec;  // the tiles' base is 16-byte aligned
+};
+
+__global__ void __launch_bounds__(kThreads, 2) eigenplane_kernel(EigenArgs a) {
+  __shared__ float2 tab[3][256];
+  __shared__ double dbuf[10 * kWarps];
+  __shared__ float res[8];
+  __shared__ stain::ClusterSlots cs;
+  for (int i = threadIdx.x; i < 3 * 256; i += kThreads) {
+    const int c = i >> 8, v = i & 255;
+    tab[c][v] = make_float2(a.luts[v], a.luts[(1 + c) * 256 + v]);
   }
-}
-
-// K3. Per-image scalar table (B, 16): [0:6] source rows, [6:8] the rescale
-// maxC_tgt / max(maxC_src, 1e-8), [8:14] target rows, [14] the lasso
-// regularizer, [15] pad. lut: K1's OD table (row 0 of its luts).
-constexpr int kApplyThreads = 256;
-constexpr int kApplyPixels = 4;  // pixels per thread
-constexpr int kMatrixScal = 16;
-
-__global__ void __launch_bounds__(kApplyThreads) matrix_apply_kernel(
-    const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
-    const float* __restrict__ scal, const float* __restrict__ od_lut,
-    int n_pix, int pix_stride, int ch_stride) {
-  __shared__ float lut[1][256];
-  for (int i = threadIdx.x; i < 256; i += kApplyThreads) lut[0][i] = od_lut[i];
   __syncthreads();
-  const float* s = scal + blockIdx.y * kMatrixScal;
-  float he[6], tgt[6];
-  for (int i = 0; i < 6; ++i) {
-    he[i] = s[i];
-    tgt[i] = s[8 + i];
-  }
-  const float scale1 = s[6], scale2 = s[7], lam = s[14];
-  const stain::Gram g = stain::gram(he);
-  const size_t img_off = (size_t)blockIdx.y * 3 * n_pix;
-  const stain::Tile t{in + img_off, lut, n_pix, pix_stride, ch_stride,
-                      1, n_pix, n_pix, 0.0f};
-  uint8_t* dst = out + img_off;
-  const int stride = gridDim.x * kApplyThreads;
-  for (int p = blockIdx.x * kApplyThreads + threadIdx.x; p < n_pix; p += stride) {
-    float o0, o1, o2, c1, c2;
-    t.od(p, o0, o1, o2);
-    stain::lasso2(o0, o1, o2, he, g, lam, c1, c2);
-    stain::write_pixel(dst + (size_t)p * pix_stride, ch_stride, c1 * scale1,
-                       c2 * scale2, tgt);
-  }
+  const cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+  stain::Staged s{};
+  s.G = cl.num_blocks();
+  s.rank = cl.block_rank();
+  s.dbuf = dbuf;
+  s.res = res;
+  s.cs = &cs;
+  const int tile = blockIdx.x / s.G;
+  const uint8_t* src = a.in + (size_t)tile * 3 * a.n_pix;
+  const int groups = a.n_pix / kEigenW;
+  const int per = (groups + s.G - 1) / s.G;
+  const int end = min(groups, ((int)s.rank + 1) * per);
+  double acc[10] = {0., 0., 0., 0., 0., 0., 0., 0., 0., 0.};
+  int count = 0;
+  for (int grp = (int)s.rank * per + (int)threadIdx.x; grp < end; grp += kThreads)
+    stain::read_group<true, kEigenW>(
+        src, a.n_pix, grp, a.vec, [&](uint32_t r, uint32_t g, uint32_t b) {
+          const float2 tr = tab[0][r], tg = tab[1][g], tb = tab[2][b];
+          if (tr.y + tg.y + tb.y < a.y_thr) {
+            // float products, as the plain version's
+            const float t[9] = {tr.x,        tg.x,        tb.x,
+                                tr.x * tr.x, tr.x * tg.x, tr.x * tb.x,
+                                tg.x * tg.x, tg.x * tb.x, tb.x * tb.x};
+            count += 1;
+#pragma unroll
+            for (int k = 0; k < 9; ++k)
+              acc[k + 1] += k < kIntTerms ? stain::pos_to_double(t[k])
+                                          : (double)t[k];
+          }
+        });
+  acc[0] = count;
+  float* out = a.out + (size_t)tile * 6;
+  const bool writer = s.rank == 0;
+  stain::staged_sum_apply<kThreads>(s, acc, [&](const double* t, float*) {
+    if (!writer) return;
+    float st[10], v[6];
+    for (int k = 0; k < 10; ++k) st[k] = (float)t[k];
+    stain::eigenplane_from_moments(st, v);
+    for (int k = 0; k < 6; ++k) out[k] = v[k];
+  });
 }
 
 // The augment kernels' per-pixel body (K6, K7). One image's values, loaded
@@ -356,12 +383,62 @@ __global__ void __launch_bounds__(kThreads, 2) macenko_augment_kernel(
         });
 }
 
-// K7. A persistent 1-D grid sized from the card walks (image, chunk) work
-// items, a chunk being one group of W pixels per thread. The per-image values
-// come by pointer with a stride each (0: shared by all images); the
-// regularizer, the luminance threshold and the background flag by value.
+// K7 and K3. A persistent 1-D grid sized from the card walks (image, chunk)
+// work items, a chunk being one group of W pixels per thread. load(img) runs
+// when a block's work moves to another image; f(r, g, b, out) maps each
+// pixel's bytes, W per thread and step through map_group, an interleaved
+// image's head and tail one at a time. A: the kernel's arguments (in, out,
+// n_pix, chunks, items, in_vec, out_vec).
 constexpr int kAugThreads = 256;
 
+template <bool kPlanar, int W, typename A, typename Load, typename F>
+__device__ __forceinline__ void walk_items(const A& a, Load load, F f) {
+  int cur = -1;
+  for (long long item = blockIdx.x; item < a.items; item += gridDim.x) {
+    const int img = (int)(item / a.chunks);
+    const int chunk = (int)(item - (long long)img * a.chunks);
+    if (img != cur) {
+      cur = img;
+      load(img);
+    }
+    const size_t img_off = (size_t)img * 3 * a.n_pix;
+    const uint8_t* src = a.in + img_off;
+    uint8_t* dst = a.out + img_off;
+    // Interleaved: an image's base need not be W-byte aligned. Its first
+    // `head` pixels and the pixels after the last whole group of W go one
+    // at a time.
+    int head = 0;
+    bool in_vec = a.in_vec, out_vec = a.out_vec;
+    if (!kPlanar) {
+      head = stain::vector_head<W>(src, a.n_pix);
+      in_vec = true;
+      out_vec = ((uintptr_t)(dst + 3 * head) & (W - 1)) == 0;
+    }
+    const int groups = (a.n_pix - head) / W;
+    const int grp = chunk * kAugThreads + (int)threadIdx.x;
+    if (grp < groups)
+      stain::map_group<kPlanar, W>(src + 3 * head, dst + 3 * head, a.n_pix,
+                                   grp, in_vec, out_vec, f);
+    if (!kPlanar && chunk == 0) {
+      // Warp 0 takes the head pixels, warp 1 the tail (under W each).
+      const int tail0 = head + W * groups;
+      int p = -1;
+      if ((int)threadIdx.x < head) p = threadIdx.x;
+      if (threadIdx.x >= 32 && tail0 + (int)threadIdx.x - 32 < a.n_pix)
+        p = tail0 + (int)threadIdx.x - 32;
+      if (p >= 0) {
+        uint32_t px[3];
+        f(__ldg(src + 3 * (size_t)p), __ldg(src + 3 * (size_t)p + 1),
+          __ldg(src + 3 * (size_t)p + 2), px);
+        for (int c = 0; c < 3; ++c) dst[3 * (size_t)p + c] = (uint8_t)px[c];
+      }
+    }
+  }
+}
+
+// K7. The per-image values come by pointer with a stride each (0: shared by
+// all images); the regularizer, the luminance threshold and the background
+// flag by value.
 struct AugArgs {
   const uint8_t* in;
   uint8_t* out;
@@ -384,60 +461,80 @@ __global__ void __launch_bounds__(kAugThreads) augment_apply_kernel(AugArgs a) {
     tab[c][v] = make_float2(a.luts[v], a.luts[(1 + c) * 256 + v]);
   }
   __syncthreads();
-  int cur = -1;
   AugImage im;
-  for (long long item = blockIdx.x; item < a.items; item += gridDim.x) {
-    const int img = (int)(item / a.chunks);
-    const int chunk = (int)(item - (long long)img * a.chunks);
-    if (img != cur) {
-      cur = img;
-      const float* rows = a.rows + (size_t)img * a.rows_stride;
-      for (int i = 0; i < 6; ++i) im.he[i] = __ldg(rows + i);
-      im.g = stain::gram(im.he);
-      const float* al = a.alpha + (size_t)img * a.alpha_stride;
-      const float* be = a.beta + (size_t)img * a.beta_stride;
-      im.a1 = __ldg(al);
-      im.a2 = __ldg(al + 1);
-      im.b1 = __ldg(be);
-      im.b2 = __ldg(be + 1);
-    }
-    const size_t img_off = (size_t)img * 3 * a.n_pix;
-    const uint8_t* src = a.in + img_off;
-    uint8_t* dst = a.out + img_off;
-    // Interleaved: an image's base need not be W-byte aligned. Its first
-    // `head` pixels and the pixels after the last whole group of W go one
-    // at a time.
-    int head = 0;
-    bool in_vec = a.in_vec, out_vec = a.out_vec;
-    if (!kPlanar) {
-      head = stain::vector_head<W>(src, a.n_pix);
-      in_vec = true;
-      out_vec = ((uintptr_t)(dst + 3 * head) & (W - 1)) == 0;
-    }
-    const int groups = (a.n_pix - head) / W;
-    const int grp = chunk * kAugThreads + (int)threadIdx.x;
-    if (grp < groups)
-      stain::map_group<kPlanar, W>(
-          src + 3 * head, dst + 3 * head, a.n_pix, grp, in_vec, out_vec,
-          [&](uint32_t r, uint32_t g, uint32_t b, uint32_t* px) {
-            augment_bytes<kAll>(r, g, b, tab, im, a.lam, a.y_thr, px);
-          });
-    if (!kPlanar && chunk == 0) {
-      // Warp 0 takes the head pixels, warp 1 the tail (under W each).
-      const int tail0 = head + W * groups;
-      int p = -1;
-      if ((int)threadIdx.x < head) p = threadIdx.x;
-      if (threadIdx.x >= 32 && tail0 + (int)threadIdx.x - 32 < a.n_pix)
-        p = tail0 + (int)threadIdx.x - 32;
-      if (p >= 0) {
-        uint32_t px[3];
-        augment_bytes<kAll>(
-            __ldg(src + 3 * (size_t)p), __ldg(src + 3 * (size_t)p + 1),
-            __ldg(src + 3 * (size_t)p + 2), tab, im, a.lam, a.y_thr, px);
-        for (int c = 0; c < 3; ++c) dst[3 * (size_t)p + c] = (uint8_t)px[c];
-      }
-    }
-  }
+  walk_items<kPlanar, W>(
+      a,
+      [&](int img) {
+        const float* rows = a.rows + (size_t)img * a.rows_stride;
+        for (int i = 0; i < 6; ++i) im.he[i] = __ldg(rows + i);
+        im.g = stain::gram(im.he);
+        const float* al = a.alpha + (size_t)img * a.alpha_stride;
+        const float* be = a.beta + (size_t)img * a.beta_stride;
+        im.a1 = __ldg(al);
+        im.a2 = __ldg(al + 1);
+        im.b1 = __ldg(be);
+        im.b2 = __ldg(be + 1);
+      },
+      [&](uint32_t r, uint32_t g, uint32_t b, uint32_t* px) {
+        augment_bytes<kAll>(r, g, b, tab, im, a.lam, a.y_thr, px);
+      });
+}
+
+// K3. The per-image source rows, source maxC, target rows and target maxC
+// come by pointer with a stride each (0: shared by all images), the
+// regularizer by value; each image's rescale maxC_tgt / max(maxC_src, 1e-8)
+// is the plain version's IEEE quotient (clamp_min keeps a NaN), taken once
+// per image.
+struct MatrixArgs {
+  const uint8_t* in;
+  uint8_t* out;
+  const float* src;      // 6 floats per image
+  const float* max_src;  // 2
+  const float* tgt;      // 6
+  const float* max_tgt;  // 2
+  int src_stride, max_src_stride, tgt_stride, max_tgt_stride;
+  const float* od;  // K1's OD table (row 0 of its luts)
+  int n_pix, chunks;
+  long long items;
+  float lam;
+  bool in_vec, out_vec;
+};
+
+// 8 pixels per thread and step in both layouts: on an H100, planar tiles ran
+// faster at 8 than at 16 (fewer registers), where K7 gains at 16; the lasso
+// through lasso2_by gained on 256 tiles with per-tile rows and lost on a
+// 2048^2 field, the tiled route's call.
+constexpr int kMatrixW = 8;
+
+__device__ __forceinline__ float rescale(float max_tgt, float max_src) {
+  return max_tgt / (isnan(max_src) ? max_src : fmaxf(max_src, 1e-8f));
+}
+
+template <bool kPlanar>
+__global__ void __launch_bounds__(kAugThreads) matrix_apply_kernel(MatrixArgs a) {
+  __shared__ float od[256];
+  for (int i = threadIdx.x; i < 256; i += kAugThreads) od[i] = a.od[i];
+  __syncthreads();
+  stain::ApplyScal as;
+  as.lam = a.lam;
+  walk_items<kPlanar, kMatrixW>(
+      a,
+      [&](int img) {
+        const float* src = a.src + (size_t)img * a.src_stride;
+        const float* tgt = a.tgt + (size_t)img * a.tgt_stride;
+        for (int i = 0; i < 6; ++i) {
+          as.he[i] = __ldg(src + i);
+          as.tgt[i] = __ldg(tgt + i);
+        }
+        as.g = stain::gram(as.he);
+        const float* ms = a.max_src + (size_t)img * a.max_src_stride;
+        const float* mt = a.max_tgt + (size_t)img * a.max_tgt_stride;
+        as.scale1 = rescale(__ldg(mt), __ldg(ms));
+        as.scale2 = rescale(__ldg(mt + 1), __ldg(ms + 1));
+      },
+      [&](uint32_t r, uint32_t g, uint32_t b, uint32_t* px) {
+        stain::normalize_bytes(r, g, b, od, as, px);
+      });
 }
 
 Args make_args(const void* in, void* out, const void* scal, const void* luts,
@@ -513,34 +610,24 @@ extern "C" cudaError_t macenko_fit_launch(
       a, device, batch, G, kThreads, smem, static_cast<cudaStream_t>(stream));
 }
 
+// K10 over `batch` planar tiles of n_pix pixels (a multiple of 128):
+// clusters of G blocks, out (batch, 3, 2) float32.
 extern "C" cudaError_t eigenplane_launch(int device, const void* in, void* out,
                                          const void* luts, int batch,
-                                         int n_pix, int pix_stride,
-                                         int ch_stride, float y_thr,
+                                         int n_pix, float y_thr, int G,
                                          void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (batch == 0) return cudaSuccess;
-  const Args a = make_args(in, out, nullptr, luts, n_pix, pix_stride,
-                           ch_stride, 1, n_pix, n_pix, y_thr, 0.0f, 0.0f,
-                           0.0f, 0.0f, 0, 0);
-  eigenplane_kernel<<<batch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return cudaGetLastError();
-}
-
-extern "C" cudaError_t matrix_normalize_launch(
-    int device, const void* in, void* out, const void* scal, const void* lut,
-    int batch, int n_pix, int pix_stride, int ch_stride, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (batch == 0 || n_pix == 0) return cudaSuccess;
-  const int per_block = kApplyThreads * kApplyPixels;
-  const dim3 grid((n_pix + per_block - 1) / per_block, batch);
-  matrix_apply_kernel<<<grid, kApplyThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out),
-      static_cast<const float*>(scal), static_cast<const float*>(lut), n_pix,
-      pix_stride, ch_stride);
-  return cudaGetLastError();
+  EigenArgs a;
+  a.in = static_cast<const uint8_t*>(in);
+  a.out = static_cast<float*>(out);
+  a.luts = static_cast<const float*>(luts);
+  a.n_pix = n_pix;
+  a.y_thr = y_thr;
+  a.vec = (reinterpret_cast<uintptr_t>(in) & (kEigenW - 1)) == 0;
+  return stain::launch_cluster<eigenplane_kernel>(
+      a, device, batch, G, kThreads, 0, static_cast<cudaStream_t>(stream));
 }
 
 // K6 over `batch` tiles of n_pix pixels, planar (pix_stride 1) or
@@ -575,12 +662,13 @@ extern "C" cudaError_t augment_launch(
                    a, device, batch, G, kThreads, smem, s);
 }
 
-template <bool kPlanar, bool kAll, int W>
-cudaError_t launch_augment_apply(AugArgs a, int device, cudaStream_t stream) {
+// A persistent grid of `kernel` over a.items images (K7, K3): the work
+// items, the vector flags and the grid, sized from the card.
+template <auto kernel, int W, typename A>
+cudaError_t launch_walk(A a, int device, cudaStream_t stream) {
   int grid = 0;
   const cudaError_t err =
-      stain::resident_blocks<augment_apply_kernel<kPlanar, kAll, W>>(
-          device, kAugThreads, &grid);
+      stain::resident_blocks<kernel>(device, kAugThreads, &grid);
   if (err != cudaSuccess) return err;
   const int groups = a.n_pix / W;
   a.chunks = groups > 0 ? (groups + kAugThreads - 1) / kAugThreads : 1;
@@ -588,7 +676,7 @@ cudaError_t launch_augment_apply(AugArgs a, int device, cudaStream_t stream) {
   a.in_vec = (reinterpret_cast<uintptr_t>(a.in) & (W - 1)) == 0;
   a.out_vec = (reinterpret_cast<uintptr_t>(a.out) & (W - 1)) == 0;
   if ((long long)grid > a.items) grid = (int)a.items;
-  augment_apply_kernel<kPlanar, kAll, W><<<grid, kAugThreads, 0, stream>>>(a);
+  kernel<<<grid, kAugThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -623,10 +711,43 @@ extern "C" cudaError_t augment_apply_launch(
   a.y_thr = y_thr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (planar)
-    return all ? launch_augment_apply<true, true, 16>(a, device, s)
-               : launch_augment_apply<true, false, 16>(a, device, s);
-  return all ? launch_augment_apply<false, true, 8>(a, device, s)
-             : launch_augment_apply<false, false, 8>(a, device, s);
+    return all ? launch_walk<augment_apply_kernel<true, true, 16>, 16>(a, device, s)
+               : launch_walk<augment_apply_kernel<true, false, 16>, 16>(a, device, s);
+  return all ? launch_walk<augment_apply_kernel<false, true, 8>, 8>(a, device, s)
+             : launch_walk<augment_apply_kernel<false, false, 8>, 8>(a, device, s);
+}
+
+// K3 over `batch` images of n_pix pixels, planar (n_pix a multiple of 128)
+// or interleaved (any n_pix), on K7's grid. src / max_src
+// / tgt / max_tgt: float32 on the device, image i's values at ptr + i *
+// stride (stride 0: one set for all images). od: K1's OD table.
+extern "C" cudaError_t matrix_normalize_launch(
+    int device, const void* in, void* out, const void* src, int src_stride,
+    const void* max_src, int max_src_stride, const void* tgt, int tgt_stride,
+    const void* max_tgt, int max_tgt_stride, const void* od, int batch,
+    int n_pix, int planar, float lam, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (batch == 0 || n_pix == 0) return cudaSuccess;
+  MatrixArgs a;
+  a.in = static_cast<const uint8_t*>(in);
+  a.out = static_cast<uint8_t*>(out);
+  a.src = static_cast<const float*>(src);
+  a.max_src = static_cast<const float*>(max_src);
+  a.tgt = static_cast<const float*>(tgt);
+  a.max_tgt = static_cast<const float*>(max_tgt);
+  a.src_stride = src_stride;
+  a.max_src_stride = max_src_stride;
+  a.tgt_stride = tgt_stride;
+  a.max_tgt_stride = max_tgt_stride;
+  a.od = static_cast<const float*>(od);
+  a.n_pix = n_pix;
+  a.items = batch;  // times the chunks per image
+  a.lam = lam;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return planar
+             ? launch_walk<matrix_apply_kernel<true>, kMatrixW>(a, device, s)
+             : launch_walk<matrix_apply_kernel<false>, kMatrixW>(a, device, s);
 }
 
 extern "C" const char* stain_error_string(int err) {

@@ -11,7 +11,8 @@ Port of the JAX package's ``kernels/macenko_fused.py``:
 * K4 ``macenko_fit_planar`` (``:688-736``, body ``_fit_kernel``): K1's
   phases 1-4, the stain rows and maxC per tile, for the tiled route;
 * K10 ``eigenplane`` (``:498-532``, body ``_stats_kernel``): the masked OD
-  moments per tile, then torch glue to the top-2 eigenplane;
+  moments per tile and the glue XLA fuses after them, ``np.cov``'s
+  covariance and the top-2 eigenplane, in one kernel;
 * K3 ``normalize_with_matrix_planar`` (``:936-991``, body
   ``_augment_kernel`` with a fixed matrix): lasso against given source
   rows, rescale, reconstruction through the target, per pixel;
@@ -31,9 +32,10 @@ Kernel source note (``csrc/macenko_fused.cu``):
 * Bound: K1, K4 and K6 by work per pixel, not bytes (2 x 196 KB per 256^2
   tile), and by their chain of dependent reductions (moments, angle
   min/max, the angle and concentration bisection rounds, the successor
-  recoveries) with scalar 3x3 work between them. K10 is one pass; K3 and
-  K7 have no reduction: a lasso and three ``expf`` per pixel, bytes in
-  and out.
+  recoveries) with scalar 3x3 work between them. K10 is one pass, bound
+  by its instructions per pixel (nine double sums of float terms under the
+  bit rules); K3 and K7 have no reduction: a lasso and three ``expf`` per
+  pixel, bytes in and out.
 * Design: K1, K4 and K6 run one thread-block cluster of
   :func:`cluster_plan`'s G blocks of 512 threads per tile: each block
   stages its share of the sample's bytes, pseudo-angles, then
@@ -49,21 +51,24 @@ Kernel source note (``csrc/macenko_fused.cu``):
   cluster, moves 8 pixels per thread and step through 64-bit accesses
   with the lazy lasso and a one-instruction uint8 conversion (K6 through
   K7's per-pixel body, with alpha and beta by pointer and stride). K10
-  runs one 512-thread block per tile: one strided pass over the tile,
-  then a warp-shuffle + shared-memory reduction in a fixed order (no
-  float atomics, so the output is bit-reproducible). OD and the luminance
-  terms come from 256-entry tables built on the CPU, so the kernels take
-  no ``log`` per pass and see the same OD bits as the plain versions. K3
-  runs over (pixel chunks x images), so one large field fills the card.
-  K7 runs a 1-D persistent grid sized from the card over (image, chunk)
-  work items: the tables go into shared memory once per block, OD and
-  luminance term side by side (one 8-byte gather per channel); a thread
-  takes 16 planar or 8 interleaved pixels per step through 128-bit or
-  64-bit accesses, with a scalar head and tail where an interleaved image
-  is off the vector grid; the lasso's one-stain quotients are taken only
-  where they are read; and the per-image rows, alpha and beta arrive by
-  pointer and stride (:func:`_augment_args`), so the wrapper builds no
-  table.
+  runs one cluster of :func:`eigenplane_plan`'s G blocks of 512 threads per
+  tile: 16 pixels per thread and step through 128-bit loads, the moments
+  folded over the warps and the cluster's ranks in a fixed order (no float
+  atomics, so the output is bit-reproducible and the same at every G), then
+  one thread per tile runs :func:`_eigenplane_from_moments` in float32 op
+  for op, so the entry is one launch. OD and the luminance terms come from
+  256-entry tables built on the CPU, so the kernels take no ``log`` per
+  pass and see the same OD bits as the plain versions. K7 and K3 run a 1-D
+  persistent grid sized from the card over (image, chunk) work items: the
+  tables go into shared memory once per block (K7's OD and luminance term
+  side by side, one 8-byte gather per channel); a thread takes 16 planar
+  (K7) or 8 pixels per step through 128-bit or 64-bit accesses, with a
+  scalar head and tail where an interleaved image is off the vector grid;
+  the lasso's one-stain quotients are taken only where they are read; and
+  the per-image values (K7's rows, alpha and beta; K3's source
+  and target rows and maxC) arrive by pointer and stride
+  (:func:`_augment_args`, :func:`_matrix_args`), so the wrapper builds no
+  table; K3 takes each image's rescale in the kernel.
 
 On a CUDA tensor the wrappers launch the kernels; on a CPU tensor they run
 the plain torch versions (``*_ref``), which mirror the TPU kernels step for
@@ -301,6 +306,33 @@ def cluster_plan(n_sample: int, kernel: str, g: int | None = None,
         raise ValueError(f"cluster size {g} is not one of {CLUSTER_SIZES}")
     return ClusterPlan(g, slice_of(g),
                        0 if device or stage(g) > one else stage(g))
+
+
+# K10 stages nothing, so its cluster size follows the batch alone. A block
+# of 512 threads reads 16 pixels per thread and step, so a part under 4096
+# pixels leaves threads idle.
+_EIGEN_MIN_PART = 4096
+
+
+def eigenplane_plan(batch: int, n_pix: int, sms: int = 132,
+                    g: int | None = None) -> int:
+    """K10's cluster size G for ``batch`` tiles of ``n_pix`` pixels on a card
+    with ``sms`` streaming multiprocessors (an H100's 132 by default): the
+    largest G whose ``batch * G`` blocks find an SM each and whose parts
+    keep 4096 pixels, so one 256x256 tile spreads over 16 SMs, 16 tiles
+    over 8 each and 256 tiles run one block each. Within 1.04x of the best
+    G at every batch of ``scripts/torch_cluster_sweep.py --kernels K10``
+    (1 to 256 tiles of 256x256, 1 to 16 of 512x512, on an H100); two
+    blocks to an SM (the card's 264 block slots) ran up to 1.30x behind.
+    ``g`` forces G (tests and measurements); every G gives the same
+    bits."""
+    if g is None:
+        fits = [s for s in CLUSTER_SIZES
+                if batch * s <= sms and n_pix >= s * _EIGEN_MIN_PART]
+        g = fits[-1] if fits else 1
+    if g not in CLUSTER_SIZES:
+        raise ValueError(f"cluster size {g} is not one of {CLUSTER_SIZES}")
+    return g
 
 
 @functools.lru_cache(maxsize=None)
@@ -710,24 +742,33 @@ def eigenplane_ref(rgb_planar, luminosity_threshold: float = 0.8):
         torch.stack(_masked_moments(od0, od1, od2, mask), dim=1))
 
 
-def eigenplane(rgb_planar, luminosity_threshold: float = 0.8):
-    """Top-2 eigenvector plane of the masked OD covariance per planar
-    (B, 3, R, 128) uint8 tile (``macenko_fused.py:498-532``): the moments
-    kernel, then torch glue. Returns (B, 3, 2) float32."""
+def _eigen_launch(rgb_planar, luminosity_threshold: float = 0.8,
+                  g: int | None = None):
+    """K10 on CUDA tiles at :func:`eigenplane_plan`'s G (``g`` forces it)."""
     global eigenplane_launches
-    _check(rgb_planar, planar=True)
-    if rgb_planar.device.type == "cpu":
-        return eigenplane_ref(rgb_planar, luminosity_threshold)
     from stainlib_tpu_torch.kernels import _build
 
     B, dev = rgb_planar.shape[0], rgb_planar.device
     n_pix = _n_pix(rgb_planar, True)
-    st = torch.empty((B, 10), dtype=torch.float32, device=dev)
+    G = eigenplane_plan(B, n_pix, sm_count(dev), g)
+    out = torch.empty((B, 3, 2), dtype=torch.float32, device=dev)
     _build.launch("eigenplane_launch", dev, rgb_planar.data_ptr(),
-                  st.data_ptr(), _tables(dev).data_ptr(), B, n_pix, 1, n_pix,
-                  _y_threshold(luminosity_threshold))
+                  out.data_ptr(), _tables(dev).data_ptr(), B, n_pix,
+                  _y_threshold(luminosity_threshold), G)
     eigenplane_launches += 1
-    return _eigenplane_from_moments(st)
+    return out
+
+
+def eigenplane(rgb_planar, luminosity_threshold: float = 0.8):
+    """Top-2 eigenvector plane of the masked OD covariance per planar
+    (B, 3, R, 128) uint8 tile (``macenko_fused.py:498-532``). Returns
+    (B, 3, 2) float32. On the card one kernel launch computes the moments
+    and the eigen-solve; each tile is one cluster of
+    :func:`eigenplane_plan`'s G blocks."""
+    _check(rgb_planar, planar=True)
+    if rgb_planar.device.type == "cpu":
+        return eigenplane_ref(rgb_planar, luminosity_threshold)
+    return _eigen_launch(rgb_planar, luminosity_threshold)
 
 
 # ---------------------------------------------------------------------------
@@ -737,7 +778,7 @@ def eigenplane(rgb_planar, luminosity_threshold: float = 0.8):
 
 def _matrix_scalars(stain_matrix_src, max_c_src, stain_matrix_tgt,
                     max_c_tgt, regularizer, batch, device):
-    """The kernel's (B, 16) per-image table: source rows, the rescale
+    """The plain version's (B, 16) per-image table: source rows, the rescale
     ``max_c_tgt / max(max_c_src, 1e-8)`` (``:964``), target rows, the
     regularizer, pad."""
     mcs = _per_tile(max_c_src, 2, batch, device)
@@ -789,23 +830,37 @@ def normalize_with_matrix_ref(rgb, stain_matrix_src, max_c_src,
     return out.transpose(1, 2).reshape(B, H, W, 3)
 
 
+def _matrix_args(stain_matrix_src, max_c_src, stain_matrix_tgt, max_c_tgt,
+                 batch, device):
+    """K3's per-image values as ``(tensor, stride)`` pointer arguments: the
+    source rows (6 floats), source maxC (2), target rows (6) and target
+    maxC (2), each shared (stride 0: the slide-level case) or per image
+    (the tiled route's K4 output). Float32 contiguous tensors on
+    ``device`` pass through untouched, so the wrapper runs no torch op."""
+    return (_pointer_arg(stain_matrix_src, 6, batch, device),
+            _pointer_arg(max_c_src, 2, batch, device),
+            _pointer_arg(stain_matrix_tgt, 6, batch, device),
+            _pointer_arg(max_c_tgt, 2, batch, device))
+
+
 def _matrix_launch(x, planar: bool, stain_matrix_src, max_c_src,
                    stain_matrix_tgt, max_c_tgt, regularizer: float):
     global matrix_launches
     from stainlib_tpu_torch.kernels import _build
 
     B, dev = x.shape[0], x.device
-    if B > 65535:
-        raise ValueError(f"the fixed-matrix kernel takes at most 65535 "
-                         f"images per call, got {B}")
     n_pix = _n_pix(x, planar)
-    scal = _matrix_scalars(stain_matrix_src, max_c_src, stain_matrix_tgt,
-                           max_c_tgt, regularizer, B, dev)
+    if n_pix >= 2 ** 31:
+        raise ValueError(f"the fixed-matrix kernel takes images of under "
+                         f"2^31 pixels, got {n_pix}")
+    ptrs = _matrix_args(stain_matrix_src, max_c_src, stain_matrix_tgt,
+                        max_c_tgt, B, dev)
     out = torch.empty_like(x)
-    pix_stride, ch_stride = (1, n_pix) if planar else (3, 1)
     _build.launch("matrix_normalize_launch", dev, x.data_ptr(),
-                  out.data_ptr(), scal.data_ptr(), _tables(dev).data_ptr(),
-                  B, n_pix, pix_stride, ch_stride)
+                  out.data_ptr(),
+                  *[v for t, stride in ptrs for v in (t.data_ptr(), stride)],
+                  _tables(dev).data_ptr(), B, n_pix, int(planar),
+                  regularizer)
     matrix_launches += 1
     return out
 
@@ -817,7 +872,9 @@ def normalize_with_matrix_planar(rgb_planar, stain_matrix_src, max_c_src,
     (``macenko_fused.py:936-991``): exact lasso against a fixed per-tile
     (B, 2, 3) or shared (2, 3) source matrix, rescale every stain by
     ``max_c_tgt / max_c_src``, reconstruct through the target matrix.
-    The JAX signature's ``interpret`` has no counterpart here."""
+    On the card, float32 values already on the tiles' device reach the
+    kernel by their own pointer. The JAX signature's ``interpret`` has no
+    counterpart here."""
     _check(rgb_planar, planar=True)
     args = (stain_matrix_src, max_c_src, stain_matrix_tgt, max_c_tgt,
             regularizer)

@@ -5,7 +5,8 @@ estimation sample the routes admit, a cluster size of at most 16 blocks,
 shared memory within one block's 227 KB, and slices that together cover
 the sample; larger samples staged in device memory. The plans of K1, K8,
 K6 and K9 also weigh the batch against the card's block slots, as the plan
-of K5 (Reinhard) does. Pure Python: no card needed.
+of K5 (Reinhard) does; that of K10 (the eigenplane, which stages nothing)
+weighs it against the card's SMs. Pure Python: no card needed.
 """
 
 import pytest
@@ -262,3 +263,27 @@ def test_k5_plan_between_and_forced():
     for g in (0, 3, 32):
         with pytest.raises(ValueError, match="cluster size"):
             rf.reinhard_plan(1, n, g=g)
+
+
+@pytest.mark.parametrize("batch,side,g", [
+    (1, 256, 16), (1, 512, 16), (4, 256, 16), (16, 256, 8), (16, 512, 8),
+    (17, 256, 4), (33, 256, 4), (34, 256, 2), (66, 256, 2), (67, 256, 1),
+    (128, 256, 1), (256, 256, 1), (1, 128, 4), (1, 64, 1)])
+def test_k10_plan_weighs_batch_against_sms(batch, side, g):
+    """One 256^2 tile spreads over 16 blocks, a batch gets one block per SM
+    of the card's 132, and a part keeps 4096 pixels (16 per thread of a
+    512-thread block, once)."""
+    assert mf.eigenplane_plan(batch, side * side) == g
+    assert batch * g <= 132 or g == 1
+
+
+def test_k10_plan_forced_and_refused():
+    """``g`` forces any cluster size; a size no cluster takes raises; a
+    smaller card spreads a tile over fewer blocks."""
+    n = 256 * 256
+    for g in mf.CLUSTER_SIZES:
+        assert mf.eigenplane_plan(256, n, g=g) == g
+    for g in (0, 3, 32):
+        with pytest.raises(ValueError, match="cluster size"):
+            mf.eigenplane_plan(1, n, g=g)
+    assert mf.eigenplane_plan(8, n, sms=32) == 4

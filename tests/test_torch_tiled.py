@@ -103,6 +103,67 @@ def test_plain_k4_and_k10_match_jax_kernels():
         rtol=0, atol=5e-5)
 
 
+@pytest.mark.parametrize("tiles", ["white_and_he", "one_512"])
+def test_plain_k10_matches_jax_on_background_and_large_tiles(tiles):
+    """A tile with no tissue (all white: zero moments, the clamped scale and
+    the degenerate eigenvector branch) beside an H&E tile, and one 512^2
+    tile."""
+    if tiles == "white_and_he":
+        img = he_batch(2, 128, 128, seed=51)
+        img[0] = 255
+    else:
+        img = he_batch(1, 512, 512, seed=52)
+    planar = _planar(img)
+    V = mf.eigenplane(torch.from_numpy(planar))
+    np.testing.assert_allclose(
+        V.numpy(), np.asarray(jax_k.eigenplane(jnp.asarray(planar),
+                                               interpret=True)),
+        rtol=0, atol=5e-5)
+    if tiles == "white_and_he":
+        assert V[0].tolist() == [[1.0, 1.0], [0.0, 0.0], [0.0, 0.0]]
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_plain_k3_matches_jax_with_shared_and_per_tile_rows(shared):
+    """The slide-level case (one (2, 3) source matrix and (2,) maxC for
+    every tile) and per-tile rows (the tiled route's K4 output)."""
+    img = he_batch(3, 64, 128, seed=53)
+    planar = _planar(img)
+    jp, _ = _params("macenko", 41)
+    M, mc = mf.macenko_fit_planar(torch.from_numpy(planar))
+    src = (M[1].numpy(), mc[1].numpy()) if shared else (M.numpy(),
+                                                        mc.numpy())
+    args = (*src, np.asarray(jp.stain_matrix_target),
+            np.asarray(jp.max_c_target))
+    want = jax_k.normalize_with_matrix_planar(jnp.asarray(planar), *args,
+                                              interpret=True)
+    got = mf.normalize_with_matrix_planar(torch.from_numpy(planar), *args)
+    _u8_close(got, want)
+    if shared:
+        per_tile = mf.normalize_with_matrix_planar(
+            torch.from_numpy(planar), np.broadcast_to(args[0], (3, 2, 3)),
+            np.broadcast_to(args[1], (3, 2)), *args[2:])
+        assert torch.equal(per_tile, got)
+
+
+def test_k3_pointer_arguments_take_shared_or_per_image_values():
+    """K3's per-image values as (tensor, stride): a float32 contiguous
+    tensor on the device passes as it is, stride 0 when shared and the
+    width when per image; anything else is converted once; a wrong width
+    raises."""
+    M = torch.rand(4, 2, 3)
+    mc = torch.rand(4, 2)
+    ptrs = mf._matrix_args(M, mc, M[0], mc[0].numpy(), 4, torch.device("cpu"))
+    assert [stride for _, stride in ptrs] == [6, 2, 0, 0]
+    assert ptrs[0][0] is M and ptrs[1][0] is mc
+    assert ptrs[3][0].dtype == torch.float32
+    for bad in (torch.rand(4, 3), torch.rand(2, 2, 3), torch.rand(5)):
+        with pytest.raises(ValueError, match="expected"):
+            mf._matrix_args(M, mc, bad, mc, 4, torch.device("cpu"))
+    with pytest.raises(ValueError, match="expected"):
+        mf._matrix_args(M, torch.rand(4, 3), M, mc, 4, torch.device("cpu"))
+
+
 @pytest.mark.parametrize("method,shape,kw,budget", [
     # Ragged, lane-unaligned field: the white-padding path, functional fit.
     ("macenko", (72, 88), dict(block=32), 1),

@@ -10,7 +10,9 @@ the card:
 
 Tolerances: K3 at most 1 uint8 step on under 0.1% of the bytes; K4 rows
 atol 1e-5 and maxC rtol 1e-5; K10 atol 1e-6. The kernels and the plain
-versions share the OD tables and sum the moments in double / float64.
+versions share the OD tables and sum the moments in double / float64; K10
+runs its eigen-solve in the kernel, op for op as torch runs the plain
+version's glue on the card.
 """
 
 import numpy as np
@@ -175,3 +177,122 @@ def test_k4_cluster_white_tile_and_single_image(cuda):
     Mk, mck = _k4_exact(planar)
     one = _k4_exact(planar[2:3].contiguous())
     assert torch.equal(one[0][0], Mk[2]) and torch.equal(one[1][0], mck[2])
+
+
+def _k3_bytes(x, planar, *args):
+    fn, ref = ((mf.normalize_with_matrix_planar,
+                mf.normalize_with_matrix_planar_ref) if planar
+               else (mf.normalize_with_matrix, mf.normalize_with_matrix_ref))
+    before = mf.matrix_launches
+    got = fn(x, *args)
+    assert mf.matrix_launches == before + 1
+    _u8_close(got, ref(x, *args))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planar", [False, True])
+@pytest.mark.parametrize("shared", [False, True])
+def test_k3_shared_and_per_tile_values_in_both_layouts(cuda, planar, shared):
+    """Source rows and maxC shared by the batch (the slide-level case,
+    stride 0) or one per tile (stride 6 and 2), as float32 device tensors
+    and as arrays; the target shared."""
+    M, mc = _params(cuda)
+    rgb = torch.from_numpy(he_batch(6, 256, 256, seed=103)).to(cuda)
+    planar_x = fs.to_planar(rgb).contiguous()
+    Ms, mcs = mf.macenko_fit_planar(planar_x)
+    Ms, mcs = Ms.contiguous(), mcs.contiguous()
+    if shared:
+        Ms, mcs = Ms[2], mcs[2]
+    x = planar_x if planar else rgb
+    got = _k3_bytes(x, planar, Ms, mcs, M, mc)
+    assert torch.equal(got, _k3_bytes(x, planar, Ms.cpu().numpy(),
+                                      mcs.cpu().numpy(), M.cpu(), mc))
+    assert torch.equal(fs.from_planar(got, 256, 256) if planar else got,
+                       mf.normalize_with_matrix(
+                           rgb, Ms.expand(6, 2, 3) if shared else Ms,
+                           mcs.expand(6, 2) if shared else mcs, M, mc))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planar", [False, True])
+@pytest.mark.parametrize("offset", [1, 7, 8])
+def test_k3_takes_unaligned_views(cuda, planar, offset):
+    """A contiguous view that starts ``offset`` bytes into its buffer: the
+    vector groups start after a scalar head (interleaved) or move byte by
+    byte (planar)."""
+    M, mc = _params(cuda)
+    rgb = torch.from_numpy(he_batch(2, 128, 128, seed=104)).to(cuda)
+    src = fs.to_planar(rgb).contiguous() if planar else rgb
+    buf = torch.zeros(src.numel() + 32, dtype=torch.uint8, device=cuda)
+    x = buf[offset:offset + src.numel()].view(src.shape)
+    x.copy_(src)
+    assert x.is_contiguous() and x.data_ptr() % 8 == offset % 8
+    Ms, mcs = extractive.estimate_source(rgb[:, ::2, ::2])
+    assert torch.equal(_k3_bytes(x, planar, Ms, mcs, M, mc),
+                       _k3_bytes(src, planar, Ms, mcs, M, mc))
+
+
+@pytest.mark.cuda
+def test_k3_odd_interleaved_images(cuda):
+    """255x255 images: an odd pixel count, so each image after the first
+    starts off the vector grid and every image has a tail."""
+    M, mc = _params(cuda)
+    rgb = torch.from_numpy(he_batch(3, 255, 255, seed=105)).to(cuda)
+    Ms, mcs = extractive.estimate_source(rgb[:, ::2, ::2])
+    got = _k3_bytes(rgb, False, Ms, mcs, M, mc)
+    assert torch.equal(_k3_bytes(rgb[1:2].contiguous(), False, Ms[1],
+                                 mcs[1], M, mc)[0], got[1])
+
+
+@pytest.mark.cuda
+def test_k3_takes_more_than_65535_tiles(cuda):
+    """65,537 planar tiles of 128 pixels in one launch (the persistent grid
+    has no per-image grid dimension)."""
+    M, mc = _params(cuda)
+    x = torch.from_numpy(np.random.default_rng(106).integers(
+        0, 256, (65537, 3, 1, 128), dtype=np.uint8)).to(cuda)
+    Ms, mcs = extractive.estimate_source(
+        torch.from_numpy(he_batch(1, 64, 64, seed=107)).to(cuda))
+    rows = Ms.expand(65537, 2, 3).contiguous()
+    rows = rows * (1.0 + torch.linspace(0.0, 0.1, 65537, device=cuda)
+                   )[:, None, None]
+    maxc = mcs.expand(65537, 2).contiguous()
+    _k3_bytes(x, True, rows, maxc, M, mc)
+
+
+def _k10_within(planar, g=None):
+    got = mf._eigen_launch(planar, g=g)
+    want = mf.eigenplane_ref(planar)
+    assert got.shape == want.shape == (planar.shape[0], 3, 2)
+    assert float((got - want).abs().max()) <= 1e-6, g
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,side", [(256, 256), (1, 256), (16, 512)])
+def test_k10_equals_plain_at_every_cluster_size(cuda, batch, side):
+    """Within 1e-6 of the plain version, the same bits at every G and on a
+    rerun, and a tile's plane the same alone as in its batch."""
+    rgb = torch.from_numpy(he_batch(batch, side, side, seed=108)).to(cuda)
+    planar = fs.to_planar(rgb).contiguous()
+    before = mf.eigenplane_launches
+    V = mf.eigenplane(planar)
+    assert mf.eigenplane_launches == before + 1
+    for g in mf.CLUSTER_SIZES:
+        assert torch.equal(_k10_within(planar, g), V), g
+    assert torch.equal(mf.eigenplane(planar), V)
+    k = batch // 2
+    assert torch.equal(mf.eigenplane(planar[k:k + 1].contiguous())[0], V[k])
+
+
+@pytest.mark.cuda
+def test_k10_all_background_tile(cuda):
+    """A tile with no tissue pixel: zero moments, the clamped scale and the
+    degenerate eigenvector, as the plain version."""
+    tiles = he_batch(3, 256, 256, seed=109)
+    tiles[1] = 255
+    planar = fs.to_planar(torch.from_numpy(tiles).to(cuda)).contiguous()
+    V = _k10_within(planar)
+    assert torch.equal(V[1], mf.eigenplane_ref(planar)[1])
+    assert V[1].tolist() == [[1.0, 1.0], [0.0, 0.0], [0.0, 0.0]]
