@@ -27,7 +27,17 @@ the card, on uint8 H&E images (random synthetic images from a seed):
   (K7 per pop), ``stain_augment`` on one 2048x2048 field (the functional
   estimate, then K7 on the whole field), and the torch-only augmenters
   (HED, grayscale, RGB, HSV jitter, the geometric warp) against their CPU
-  evaluation.
+  evaluation;
+* whole-slide deployment (phases 41-44): ``normalize_slide`` on a
+  16,384x16,384 synthetic WSIRAW slide (4,096 tiles of 256x256) in slide
+  mode (K3 once per batch of 64), timed by parts (fit, stream, pyramid,
+  write) on the host clock, the stream traced by ``torch.profiler`` (K3's
+  device time, the device's idle share); the four kernel routes (K3 slide
+  mode, K1, K2 and K5 tile mode) on a 2000x2300 slide against their plain
+  versions byte for byte, the functional path's budget and a second run;
+  and the four routes end to end at 4096x4096. Where the host has no
+  libtiff the TIFF writer is not run (a line says so) and level 0 is read
+  from the canvas the stream fills.
 
 It builds the hand-written CUDA kernels from the sources in the checkout,
 counts each kernel's launches over its path, holds every kernel against
@@ -50,7 +60,8 @@ are skipped and say so.
 Phases print one line each. Before the last line it prints the card's name
 and power limit (``nvidia-smi``) and a JSON object describing each kernel:
 its launches on its path, its largest difference from its plain version,
-its time and the plain version's, and ``bound_ms``, the least time the card
+its time and the plain version's, K1's, K2's, K3's and K5's launches on the
+whole-slide phases (``slide_launches``), and ``bound_ms``, the least time the card
 could take for the same work (the larger of its bytes over 3.35 TB/s and
 its float32 operations over 67 TFLOP/s, counted from the shapes of the
 timed call and the tissue share of its inputs); the last line is
@@ -106,14 +117,19 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def tiles(n, side, seed):
-    """Synthetic H&E tiles from ``tests/synth.py``, loaded by path (another
-    installed ``tests`` package may shadow the repo's)."""
+def synth_module():
+    """``tests/synth.py``, loaded by path (another installed ``tests``
+    package may shadow the repo's)."""
     path = Path(__file__).resolve().parent / "tests" / "synth.py"
     spec = importlib.util.spec_from_file_location("stain_synth", path)
     synth = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(synth)
-    return synth.he_batch(n, side, side, seed=seed)
+    return synth
+
+
+def tiles(n, side, seed):
+    """Synthetic H&E tiles from ``tests/synth.py``."""
+    return synth_module().he_batch(n, side, side, seed=seed)
 
 
 def compare(got, want):
@@ -655,6 +671,379 @@ def parent_phases() -> None:
         else:
             assert k["this_vs_plain_differ"] == 0, name
             assert k["differ_between_trees"] == 0, name
+
+
+# ---- Whole-slide deployment (phases 41-45) ----------------------------------
+
+SLIDE_SIDE = 16384  # 805 MB of level 0, 4,096 tiles of 256^2
+SLIDE_SMALL = (2000, 2300)  # width, height: partial tiles on both edges
+SLIDE_MID = 4096  # 256 tiles: the four routes end to end
+SLIDE_BATCH = 64
+# Functional-path budgets of the four routes (PERF.md section 2): max u8,
+# and the bound on the share of bytes off by more than 1 or, where the
+# budget counts bytes within 1 (K3, K5), the share allowed beyond 1. K5's
+# max is 4, not tests/test_reinhard_fused.py:23-24's 3: on this slide's
+# tiles the JAX package's own K5 and functional Reinhard differ by 4 u8 on
+# a few bytes per tile, and the port equals both
+# (tests/test_torch_reinhard.py::test_k5_functional_gap_is_the_references).
+SLIDE_ROUTES = {
+    # route: (method, estimation, kernel, max, share > 1 below)
+    "K3": ("macenko", "slide", "normalize_with_matrix_planar", 3, 5e-3),
+    "K1": ("macenko", "tile", "macenko_normalize_planar", 2, 1e-2),
+    "K2": ("vahadane", "tile", "vahadane_normalize_planar", 4, 1e-2),
+    "K5": ("reinhard", "tile", "reinhard_normalize_planar", 4, 1e-2),
+}
+
+
+def synth_level0(w: int, h: int, tile: int, seed: int) -> np.ndarray:
+    """An H&E-like w x h field, ``scripts/bench_wsi_scale.py::synth_level0``'s
+    recipe (smooth sinusoidal concentration fields, noise from ``seed``,
+    white margins at the top and left), made row band by row band, with a
+    white band one tile high across the middle (whole background tiles)."""
+    he = np.array([[0.55, 0.72, 0.42], [0.17, 0.80, 0.57]])
+    he = (he / np.linalg.norm(he, axis=1, keepdims=True)).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    lv0 = np.empty((h, w, 3), np.uint8)
+    xs = np.arange(w, dtype=np.float32)
+    for r0 in range(0, h, tile):
+        r1 = min(r0 + tile, h)
+        yy = np.arange(r0, r1, dtype=np.float32)[:, None]
+        c_h = np.clip(0.8 + 0.6 * np.sin(yy / 9.0) * np.cos(xs / 7.0), 0, None)
+        c_e = np.clip(0.6 + 0.4 * np.cos(yy / 11.0) * np.sin(xs / 5.0), 0,
+                      None)
+        C = np.stack([c_h, c_e], -1).astype(np.float32)
+        C *= 0.9 + 0.2 * rng.random((r1 - r0, w, 2), np.float32)
+        img = 255.0 * np.exp(-(C.reshape(-1, 2) @ he))
+        lv0[r0:r1] = np.clip(img, 0, 255).astype(np.uint8).reshape(
+            r1 - r0, w, 3)
+    m = tile // 2
+    lv0[:m] = 255
+    lv0[:, :m] = 255
+    lv0[h // 2: h // 2 + tile] = 255
+    return lv0
+
+
+def trace_activities(prof) -> dict:
+    """{device activity name: (count, total ms)} of a ``torch.profiler``
+    trace."""
+    return {e.key: (e.count, getattr(e, "device_time_total", 0.0) / 1e3)
+            for e in prof.key_averages()
+            if getattr(e, "device_time_total", 0.0) > 0}
+
+
+def slide_phases(dev, smi) -> dict:
+    """Phases 41-45: whole-slide deployment through
+    ``normalization.slide.normalize_slide``, the user's entry point (the
+    reference's ``tester`` loop): a 16,384^2 slide in slide mode (K3), then
+    the four kernel routes (K3, K1, K2, K5) at 2000x2300 against their
+    plain versions and the functional path, and end to end at 4096^2.
+    Returns each route's launches on its main run (phase 42 for K3, phase
+    44 for K1, K2 and K5)."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from stainlib_tpu_torch.data import native
+    from stainlib_tpu_torch.kernels import macenko_fused as mf
+    from stainlib_tpu_torch.kernels import reinhard_fused as rf
+    from stainlib_tpu_torch.kernels import vahadane_fused as vf
+    from stainlib_tpu_torch.normalization import extractive, reinhard
+    from stainlib_tpu_torch.normalization import slide as sl
+
+    def counts():
+        return dict(K3=mf.matrix_launches, K1=mf.launches, K2=vf.launches,
+                    K5=rf.launches)
+
+    def reset():
+        mf.matrix_launches = mf.launches = vf.launches = rf.launches = 0
+
+    tiff = native.tiff_native_available()
+    parts = ("fit_slide", "fit_slide_reinhard", "_stream_canvas",
+             "build_pyramid", "write_tiff_pyramid")
+
+    def drive(src, out, target, traced=False, **kw):
+        """``normalize_slide(src, out, target, **kw)`` on the card, each
+        part timed on the host clock (a synchronize after each), the
+        stream traced by ``torch.profiler`` where ``traced``. Returns (the
+        summary, the level-0 canvas the stream filled, the times in s, the
+        stream's trace or None). Where the host has libtiff, the written
+        level 0 is read back and must equal the canvas (JPEG: a mean error
+        under 3); where it has none, the writer is not run."""
+        times, seen = {}, {}
+        real = {n: getattr(sl, n) for n in parts}
+
+        def timed(name):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                if name == "write_tiff_pyramid" and not tiff:
+                    times[name] = None
+                    return None
+                if name == "_stream_canvas" and traced:
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        t0 = time.perf_counter()
+                        res = real[name](*a, **k)
+                        torch.cuda.synchronize()
+                        times[name] = time.perf_counter() - t0
+                    seen["prof"] = prof
+                else:
+                    t0 = time.perf_counter()
+                    res = real[name](*a, **k)
+                    torch.cuda.synchronize()
+                    times[name] = time.perf_counter() - t0
+                if name == "_stream_canvas":
+                    seen["canvas"] = res[0]
+                return res
+            return run
+
+        for n in parts:
+            setattr(sl, n, timed(n))
+        try:
+            t0 = time.perf_counter()
+            info = sl.normalize_slide(src, out, target, device=dev, **kw)
+            torch.cuda.synchronize()
+            times["total"] = time.perf_counter() - t0
+        finally:
+            for n, f in real.items():
+                setattr(sl, n, f)
+        if tiff:  # what was written is the canvas (JPEG: lossy)
+            s = native.TiffSlide(out)
+            written = s.read_region(0, 0, 0, *s.level_size(0))
+            s.close()
+            d = np.abs(written.astype(np.int16) - seen["canvas"])
+            assert (d.max() == 0 if kw.get("compression") == "none"
+                    else d.mean() < 3.0), "the written level 0 differs"
+        return info, seen["canvas"], times, seen.get("prof")
+
+    def grid_tiles(path, tile=256):
+        s = native.open_slide(path)
+        W, H = s.level_size(0)
+        coords = sl._grid_coords(W, H, tile)
+        tl = np.stack([s.read_region(0, x, y, tile, tile) for x, y in coords])
+        s.close()
+        return coords, tl, W, H
+
+    def assemble(coords, tl, W, H, tile=256):
+        canvas = np.empty((H, W, 3), np.uint8)
+        for (x, y), t in zip(coords, tl):
+            h, w = min(tile, H - y), min(tile, W - x)
+            canvas[y:y + h, x:x + w] = t[:h, :w]
+        return canvas
+
+    def fmt_times(t):
+        return ", ".join(
+            f"{k} {'not run (no libtiff)' if v is None else f'{v:.3f} s'}"
+            for k, v in t.items())
+
+    root = Path(__file__).resolve().parent
+    (root / ".runs").mkdir(exist_ok=True)
+    # A target whose stain geometry differs from the slide's, so the
+    # normalization visibly moves the tissue (scripts/normalize_wsi.py's).
+    stain = np.array([[0.65, 0.70, 0.29], [0.07, 0.99, 0.11]])
+    target = synth_module().he_patch(
+        SIDE, SIDE, seed=SEED + 40, background_frac=0.0,
+        stain=stain / np.linalg.norm(stain, axis=1, keepdims=True))
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_slide_",
+                                     dir=root / ".runs") as work:
+        work = Path(work)
+        if not tiff:
+            log(41, "the TIFF writer is not run in phases 42-44: this host "
+                    "has no libtiff (no tiffio.h to build tiffreader.cpp "
+                    "against), so write_tiff_pyramid would raise; the phases "
+                    "read level 0 from the canvas _stream_canvas returns, "
+                    "and the writer is held by the CPU tests alone")
+
+        # 41. The slide: 16,384^2 WSIRAW, row band by row band, from a seed.
+        t0 = time.perf_counter()
+        lv0 = synth_level0(SLIDE_SIDE, SLIDE_SIDE, SIDE, SEED + 41)
+        t_synth = time.perf_counter() - t0
+        big = str(work / "slide16k.wsiraw")
+        t0 = time.perf_counter()
+        native.write_wsiraw(big, [lv0])
+        t_write = time.perf_counter() - t0
+        s = native.open_slide(big)
+        is_native = s.native
+        assert isinstance(s, native.RawSlide) and is_native, (
+            "the native WSIRAW reader did not load")
+        assert s.level_size(0) == (SLIDE_SIDE, SLIDE_SIDE)
+        s.close()
+        n_big = (SLIDE_SIDE // SIDE) ** 2
+        log(41, f"slide {SLIDE_SIDE}x{SLIDE_SIDE} ({lv0.nbytes / 1e6:.0f} MB "
+                f"of level 0, {n_big} tiles of {SIDE}^2): made in "
+                f"{t_synth:.2f} s, written as WSIRAW in {t_write:.2f} s; "
+                f"open_slide -> RawSlide, native={is_native}")
+
+        # 42. Slide mode, Macenko, JPEG output, batch 64: the main run (A)
+        # timed by parts, then a second run (B) with the stream traced.
+        reset()
+        info, out_a, t_a, _ = drive(big, str(work / "out_a.tif"), target,
+                                    method="macenko", estimation="slide",
+                                    batch=SLIDE_BATCH)
+        torch.cuda.synchronize()
+        launches["K3"] = counts()["K3"]
+        n_batches = -(-n_big // SLIDE_BATCH)
+        assert info["fused"] is True and info["tiles"] == n_big, info
+        assert counts() == dict(K3=n_batches, K1=0, K2=0, K5=0), counts()
+        assert out_a.shape == lv0.shape and out_a.dtype == np.uint8
+        assert out_a[:64].min() >= 250, "the white margin did not stay white"
+        q = SLIDE_SIDE // 4  # a tissue quarter, clear of the white bands
+        assert np.abs(out_a[q:2 * q, q:2 * q].astype(np.int16)
+                      - lv0[q:2 * q, q:2 * q]).mean() > 2.0
+        e2e = n_big / t_a["total"]
+        log(42, f"normalize_slide {SLIDE_SIDE}^2 macenko slide-mode batch "
+                f"{SLIDE_BATCH} jpeg: {info}; K3 launches {launches['K3']} "
+                f"(= ceil({n_big}/{SLIDE_BATCH})); host clock: "
+                f"{fmt_times(t_a)}; end to end {e2e:.1f} tiles/s; card "
+                f"'{smi}'")
+        reset()
+        _, out_b, t_b, prof = drive(big, str(work / "out_b.tif"), target,
+                                    traced=True, method="macenko",
+                                    estimation="slide", batch=SLIDE_BATCH)
+        assert counts()["K3"] == n_batches
+        assert np.array_equal(out_a, out_b), "two runs differ"
+        acts = trace_activities(prof)
+        stream_ms = t_b["_stream_canvas"] * 1e3
+        k3 = [v for k, v in acts.items() if "matrix_apply_kernel" in k]
+        k3_ms = sum(ms for _, ms in k3)
+        busy_ms = sum(ms for _, ms in acts.values())
+        other = [k for k in acts if "matrix_apply_kernel" not in k
+                 and not k.startswith(("Memcpy HtoD", "Memcpy DtoH"))]
+        assert not other, f"the stream ran other device work: {other}"
+        assert sum(c for c, _ in k3) <= n_batches
+        share = (f"K3 {k3_ms:.4f} ms = {k3_ms / stream_ms:.3%} of the "
+                 f"stream's wall time, all device activity {busy_ms:.3f} ms "
+                 f"= {busy_ms / stream_ms:.2%}: the device idles "
+                 f"{1 - busy_ms / stream_ms:.2%} of the stream" if acts
+                 else "the profiler recorded no device activity: K3's "
+                      "device time and share not measured")
+        log(42, f"run B, stream traced: {t_b['_stream_canvas']:.3f} s on the "
+                f"host clock (run A {t_a['_stream_canvas']:.3f} s); device "
+                f"activities {{name: (count, ms)}} "
+                f"{ {k: (c, round(ms, 4)) for k, (c, ms) in acts.items()} }; "
+                f"{share}; run B's level 0 equals run A's; card '{smi}'")
+        # The stream's host parts alone: the decode of its 64 batches (the
+        # per-region reads and the stack, one thread) and the placement of
+        # run A's bytes into a canvas.
+        coords = sl._grid_coords(SLIDE_SIDE, SLIDE_SIDE, SIDE)
+        s = native.open_slide(big)
+        t0 = time.perf_counter()
+        for i in range(0, n_big, SLIDE_BATCH):
+            np.stack([s.read_region(0, x, y, SIDE, SIDE)
+                      for x, y in coords[i:i + SLIDE_BATCH]])
+        t_decode = time.perf_counter() - t0
+        s.close()
+        canvas = np.empty_like(out_a)
+        t0 = time.perf_counter()
+        for x, y in coords:
+            canvas[y:y + SIDE, x:x + SIDE] = out_a[y:y + SIDE, x:x + SIDE]
+        t_place = time.perf_counter() - t0
+        del canvas
+        log(42, f"the stream's host parts alone, one thread: decode "
+                f"{t_decode:.3f} s ({t_decode / n_batches * 1e3:.1f} ms per "
+                f"batch of {SLIDE_BATCH}), placement {t_place:.3f} s; the "
+                f"stream {t_a['_stream_canvas']:.3f} s with "
+                f"prefetch_workers=2")
+
+        # Grid tiles of run A against the plain version on the same tiles:
+        # 64 of the 4,096, drawn from a seed.
+        src = sl.fit_slide(big, device=dev)
+        tp = extractive.fit(torch.from_numpy(target).to(dev))
+        pick = np.random.default_rng(SEED).choice(
+            len(coords), min(64, len(coords)), replace=False)
+        s = native.open_slide(big)
+        tl = np.stack([s.read_region(0, *coords[i], SIDE, SIDE)
+                       for i in pick])
+        s.close()
+        want = mf.normalize_with_matrix_ref(
+            torch.from_numpy(tl).to(dev), src.stain_matrix, src.max_c,
+            *tp).cpu().numpy()
+        for i, w in zip(pick, want):
+            x, y = coords[i]
+            assert np.array_equal(out_a[y:y + SIDE, x:x + SIDE], w), (
+                "K3 on the slide differs from its plain version", x, y)
+        log(42, f"{len(pick)} grid tiles of run A, drawn from a seed, equal "
+                f"byte for byte to normalize_with_matrix_ref on the same "
+                f"tiles")
+        del lv0, out_a, out_b, tl, coords
+
+        # 43. The four routes at 2000x2300, lossless: the plain version
+        # byte for byte, the functional path's budget, determinism.
+        w_s, h_s = SLIDE_SMALL
+        small = str(work / "small.wsiraw")
+        native.write_wsiraw(small, [synth_level0(w_s, h_s, SIDE, SEED + 43)])
+        coords, tl, W, H = grid_tiles(small)
+        x = torch.from_numpy(tl).to(dev)
+        n_small = len(coords)
+        for route, (method, est, _, mx_gate, over_gate) in \
+                SLIDE_ROUTES.items():
+            if method == "reinhard":
+                tp = reinhard.fit(torch.from_numpy(target).to(dev))
+            else:
+                tp = extractive.fit(torch.from_numpy(target).to(dev),
+                                    method=method)
+            outs = []
+            for run in range(2):
+                reset()
+                info, got, _, _ = drive(small, str(work / f"{route}.tif"),
+                                        tp, method=method, estimation=est,
+                                        batch=SLIDE_BATCH, compression="none")
+                assert info["fused"] is True, (route, info)
+                c = counts()
+                assert c[route] == -(-n_small // SLIDE_BATCH) and sum(
+                    c.values()) == c[route], (route, c)
+                outs.append(got)
+            assert np.array_equal(outs[0], outs[1]), (route, "runs differ")
+            if route == "K3":
+                src = sl.fit_slide(small, device=dev)
+                args = (src.stain_matrix, src.max_c, *tp)
+                plain = mf.normalize_with_matrix_ref(x, *args)
+                func = extractive.transform_with_matrix(x, *args[:2], tp)
+            elif route == "K1":
+                plain = mf.macenko_normalize_ref(x, *tp)
+                func = extractive.transform(tp, x)
+            elif route == "K2":
+                plain = vf.vahadane_normalize_ref(x, *tp)
+                func = extractive.transform(tp, x, method="vahadane")
+            else:
+                plain = rf.reinhard_normalize_ref(x, *tp)
+                func = reinhard.transform(
+                    reinhard.ReinhardParams(*(t.cpu() for t in tp)), x.cpu())
+            plain = assemble(coords, plain.cpu().numpy(), W, H)
+            func = assemble(coords, func.cpu().numpy(), W, H)
+            assert np.array_equal(outs[0], plain), (
+                route, "differs from its plain version")
+            d = np.abs(outs[0].astype(np.int16) - func)
+            mx, over1 = int(d.max()), float((d > 1).mean())
+            assert mx <= mx_gate and over1 < over_gate, (route, mx, over1)
+            log(43, f"{route} ({method}, estimation={est}) {w_s}x{h_s}, "
+                    f"{n_small} tiles, batch {SLIDE_BATCH}, lossless: equal "
+                    f"byte for byte to its plain version; vs the functional "
+                    f"path max={mx} u8, share>1={over1:.3e} (gate: max<="
+                    f"{mx_gate}, share>1<{over_gate}); two runs identical; "
+                    f"launches per run {c[route]}")
+        del x, tl
+
+        # 44. The four routes end to end at 4096^2 (256 tiles).
+        mid = str(work / "mid.wsiraw")
+        native.write_wsiraw(mid, [synth_level0(SLIDE_MID, SLIDE_MID, SIDE,
+                                               SEED + 44)])
+        n_mid = (SLIDE_MID // SIDE) ** 2
+        for route, (method, est, _, _, _) in SLIDE_ROUTES.items():
+            drive(mid, str(work / "warm.tif"), target, method=method,
+                  estimation=est, batch=SLIDE_BATCH)  # warm-up
+            reset()
+            info, _, t, _ = drive(mid, str(work / f"mid_{route}.tif"),
+                                  target, method=method, estimation=est,
+                                  batch=SLIDE_BATCH)
+            c = counts()
+            assert info["fused"] is True and c[route] == -(-n_mid // SLIDE_BATCH)
+            if route != "K3":
+                launches[route] = c[route]
+            log(44, f"{route} ({method}, estimation={est}) {SLIDE_MID}^2, "
+                    f"{n_mid} tiles: {n_mid / t['total']:.1f} tiles/s end "
+                    f"to end; {fmt_times(t)}; launches {c[route]}; card "
+                    f"'{smi}'")
+    return launches
 
 
 def main() -> int:
@@ -1311,6 +1700,13 @@ def run(dev) -> int:
 
     # ---- This tree against the parent's, where it is unpacked beside it
     parent_phases()
+
+    # ---- Whole-slide deployment (K3, K1, K2, K5 on slides) -------------
+    slide_launches = slide_phases(dev, smi)
+    for k in kernels:
+        route = {r[2]: name for name, r in SLIDE_ROUTES.items()}.get(k["name"])
+        if route is not None:
+            k["slide_launches"] = slide_launches[route]
 
     # Each kernel's bound at the shapes of its timed call, with the tissue
     # share of these inputs (the masked passes count tissue pixels only).

@@ -7,10 +7,13 @@ functional ops, Macenko and Vahadane extraction (with the dictionary
 learner), extractive fit/transform with the tiled route for large fields,
 Reinhard fit/transform, the augmentation package (HED, grayscale, HSV,
 RGB and geometric jitter, stain-concentration augmentation), the drop-in
-object API, and the fused kernels (``kernels/macenko_fused.py``,
+object API, the fused kernels (``kernels/macenko_fused.py``,
 ``kernels/vahadane_fused.py``, ``kernels/fused_stain.py``,
 ``kernels/reinhard_fused.py``), hand-written in CUDA C++ for Hopper
-(``kernels/csrc/``) and built with ``nvcc`` at first use.
+(``kernels/csrc/``) and built with ``nvcc`` at first use, and whole-slide
+deployment: the native slide readers and the device prefetch ring
+(``data/``, the readers built with ``g++`` at first use) and
+``normalization/slide.py``'s ``normalize_slide``.
 
 Importing the package imports ``torch`` only: never jax, never
 the JAX package, and it builds nothing.

@@ -4,8 +4,9 @@ The counterparts of the JAX package's fitted state: ``ExtractiveParams``
 (``normalization/extractive.py:35-39``, ``normalizer.py:27-37``),
 ``ReinhardParams`` (``normalization/reinhard.py:24-28``,
 ``normalizer.py:64-68``), and the stain augmenter's ``StainAugmentParams``
-and ``FusedStainAugmentState`` (``augmentation/functional.py:149-196``).
-Given the JAX fit as numpy arrays, build the port's, so both packages can
+and ``FusedStainAugmentState`` (``augmentation/functional.py:149-196``),
+and the slide-level estimates ``SlideStainParams`` and
+``SlideReinhardParams`` (``normalization/slide.py:62-74``). Given the JAX fit as numpy arrays, build the port's, so both packages can
 transform or pop from the same state.
 """
 
@@ -20,6 +21,10 @@ from stainlib_tpu_torch.augmentation.functional import (
 )
 from stainlib_tpu_torch.normalization.extractive import ExtractiveParams
 from stainlib_tpu_torch.normalization.reinhard import ReinhardParams
+from stainlib_tpu_torch.normalization.slide import (
+    SlideReinhardParams,
+    SlideStainParams,
+)
 
 
 def _to(x, device):
@@ -58,3 +63,19 @@ def fused_augment_state_from_jax(planar, stain_matrix, h: int, w: int,
     return FusedStainAugmentState(
         planar=torch.tensor(np.array(planar, np.uint8), device=device),
         stain_matrix=_to(stain_matrix, device), h=int(h), w=int(w))
+
+
+def slide_params_from_jax(p, device) -> SlideStainParams:
+    """A JAX ``SlideStainParams`` (numpy fields) -> the port's, float32 on
+    ``device``."""
+    return SlideStainParams(stain_matrix=_to(p.stain_matrix, device),
+                            max_c=_to(p.max_c, device))
+
+
+def slide_reinhard_params_from_jax(p, device) -> SlideReinhardParams:
+    """A JAX ``SlideReinhardParams`` (numpy LAB stats, a float divisor) ->
+    the port's, its stats float32 on ``device``."""
+    return SlideReinhardParams(
+        stats=reinhard_params_from_jax(np.asarray(p.stats.means),
+                                       np.asarray(p.stats.stds), device),
+        brightness_divisor=float(p.brightness_divisor))

@@ -1,7 +1,7 @@
 """Color-space conversions as batched torch functions.
 
 Port of the JAX package's ``ops/colorspace.py`` (the sRGB <-> CIELAB, OD,
-HED, grayscale and uint8-edge parts), which replaces the reference's OpenCV
+HED, grayscale, HSD and uint8-edge parts), which replaces the reference's OpenCV
 ``cv.cvtColor(RGB2LAB/LAB2RGB)`` calls (``stainlib/utils/
 stain_utils.py:41,62,66,152,172``), ``convert_RGB_to_OD`` /
 ``convert_OD_to_RGB`` (``stain_utils.py:101-124``) and scikit-image's
@@ -33,7 +33,7 @@ import functools
 import numpy as np
 import torch
 
-from stainlib_tpu_torch.ops.fdiv import f64, fdiv
+from stainlib_tpu_torch.ops.fdiv import f64, fdiv, sum3
 
 # OpenCV's RGB->XYZ matrix (ITU-R BT.709 primaries, D65).
 _RGB2XYZ = np.array(
@@ -216,6 +216,35 @@ def rgb_to_gray(rgb):
     (``augmenter.py:397``)."""
     return _contract(fdiv(torch.as_tensor(rgb).to(torch.float32), 255.0),
                      _GRAY_WEIGHTS)
+
+
+def rgb_to_hsd(rgb, eps: float = 1e-6):
+    """RGB [0,255] -> HSD ``(cx, cy, D)`` (hue-saturation-density, van der
+    Laak et al. 2000; ``colorspace.py:218-234``), the color model of the
+    flow pipeline: per-channel density ``D_ch = -log(I_ch/255)`` with
+    ``I`` clipped to [1, 254], overall density ``D = max(mean(D_ch),
+    eps)``, chromatic coordinates ``cx = D_R/D - 1`` and ``cy = (D_G -
+    D_B) / (sqrt(3) * D)``."""
+    I = fdiv(torch.clamp(torch.as_tensor(rgb).to(torch.float32), 1.0,
+                         254.0), 255.0)
+    od = -f64(torch.log, I)
+    D = torch.clamp_min(fdiv(sum3(od), 3.0), eps)
+    cx = od[..., 0] / D - 1.0
+    cy = (od[..., 1] - od[..., 2]) / (float(np.float32(np.sqrt(3.0))) * D)
+    return torch.stack([cx, cy, D], dim=-1)
+
+
+def hsd_to_rgb(hsd):
+    """HSD ``(cx, cy, D)`` -> RGB float [0,255], the inverse of
+    :func:`rgb_to_hsd` (``colorspace.py:237-250``)."""
+    hsd = torch.as_tensor(hsd).to(torch.float32)
+    cx, cy, D = hsd[..., 0], hsd[..., 1], hsd[..., 2]
+    s3 = float(np.float32(np.sqrt(3.0)))
+    od_r = D * (cx + 1.0)
+    od_g = 0.5 * D * (2.0 - cx + s3 * cy)
+    od_b = 0.5 * D * (2.0 - cx - s3 * cy)
+    od = torch.stack([od_r, od_g, od_b], dim=-1)
+    return torch.clamp(f64(torch.exp, -od), 0.0, 1.0) * 255.0
 
 
 def to_uint8(x):

@@ -1,6 +1,6 @@
-"""Exact non-negative K=2 lasso concentrations.
+"""Non-negative lasso concentrations: the exact K=2 solver and FISTA.
 
-Port of the JAX package's ``ops/lasso.py:29-89``, which replaces the
+Port of the JAX package's ``ops/lasso.py:29-118``, which replaces the
 reference's ``spams.lasso(X, D, mode=2, lambda1, pos=True)``
 (``stainlib/utils/stain_utils.py:69-78``) with the closed-form active-set
 solution of ``min_{c >= 0} 0.5 ||x - D c||^2 + lambda ||c||_1`` for two
@@ -9,6 +9,7 @@ stains: the same global optimum, branch-free and deterministic.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from stainlib_tpu_torch.ops.colorspace import rgb_to_od
@@ -54,3 +55,26 @@ def get_concentrations(rgb, stain_matrix, regularizer: float = 0.01):
         # Per-image stain matrices: align (..., 2, 3) with (..., H, W, 3).
         stain_matrix = stain_matrix[..., None, None, :, :]
     return nonneg_lasso_k2(od, stain_matrix, regularizer)
+
+
+def nonneg_lasso_fista(X, D, regularizer: float, num_iters: int = 200):
+    """Projected FISTA for ``min_{A>=0} 0.5||X - A D||^2 + reg*||A||_1``
+    (``lasso.py:92-118``), the general-K cross-check of
+    :func:`nonneg_lasso_k2`. ``X``: (N, P) observations; ``D``: (K, P)
+    dictionary rows. Returns (N, K) after a fixed number of iterations, so
+    the output is deterministic. The step is ``1 / (trace(D D^T) + 1e-6)``,
+    a bound on the quadratic's Lipschitz constant."""
+    X = torch.as_tensor(X).to(torch.float32)
+    D = torch.as_tensor(D, device=X.device).to(torch.float32)
+    G = D @ D.T  # (K, K)
+    B = X @ D.T  # (N, K)
+    step = 1.0 / (float(torch.trace(G)) + 1e-6)
+    A = torch.zeros_like(B)
+    Y = A
+    t = 1.0
+    for _ in range(num_iters):
+        A_next = torch.clamp_min(Y - step * (Y @ G - B + regularizer), 0.0)
+        t_next = 0.5 * (1.0 + float(np.sqrt(1.0 + 4.0 * t * t)))
+        Y = A_next + ((t - 1.0) / t_next) * (A_next - A)
+        A, t = A_next, t_next
+    return A

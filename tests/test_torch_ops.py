@@ -197,3 +197,73 @@ def test_eigh3x3_f64_against_numpy(kind):
     err32 = float(np.abs(w32.numpy() - w_np).max())
     assert err32 < 1e-5 * float(scale.max()) or kind == "near_degenerate"
     assert (err32 > 2e-5) == (kind == "near_degenerate")
+
+
+# HSD, delta-E and FISTA (``colorspace.py:218-250``, ``delta_e.py:16-30``,
+# ``lasso.py:92-118``). Tolerances: HSD coordinates atol 1e-5 (measured
+# 5e-7: float64 log in the port, float32 in JAX) and its inverse 1e-5 of
+# 255; delta-E per pixel atol 2e-4 (the LAB channels' 1e-5 of 100, summed
+# in squares) and the report's p95 the same; FISTA atol 1e-5 (measured
+# 7e-6 after 200 iterations).
+
+def test_hsd_round_trip_matches_jax():
+    jc, tc = J["colorspace"], T["colorspace"]
+    for img in _images():
+        want = np.asarray(jc.rgb_to_hsd(jnp.asarray(img)))
+        got = tc.rgb_to_hsd(torch.from_numpy(img)).numpy()
+        _close(want, got)
+        back = tc.hsd_to_rgb(torch.from_numpy(want.copy())).numpy()
+        _close(np.asarray(jc.hsd_to_rgb(jnp.asarray(want))), back)
+        # The inverse recovers the clipped [1, 254] input.
+        np.testing.assert_allclose(back, np.clip(img, 1, 254), atol=2e-3)
+
+
+def test_delta_e_matches_jax():
+    from stainlib_tpu.ops import delta_e as jd
+    from stainlib_tpu_torch.ops import delta_e as td
+
+    a, b = _images()
+    want = np.asarray(jd.delta_e76(jnp.asarray(a), jnp.asarray(b)))
+    got = td.delta_e76(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    assert got.shape == a.shape[:-1]
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-4)
+    assert float(td.delta_e76(torch.from_numpy(a),
+                              torch.from_numpy(a)).max()) == 0.0
+    np.testing.assert_allclose(
+        float(td.mean_delta_e(torch.from_numpy(a), torch.from_numpy(b))),
+        float(jd.mean_delta_e(jnp.asarray(a), jnp.asarray(b))), atol=2e-4)
+    for g, w in zip(td.delta_e_report(torch.from_numpy(a),
+                                      torch.from_numpy(b)),
+                    jd.delta_e_report(jnp.asarray(a), jnp.asarray(b))):
+        np.testing.assert_allclose(float(g), float(w), atol=2e-4)
+
+
+def test_nonneg_lasso_fista_matches_jax_and_k2():
+    rng = np.random.default_rng(2)
+    X = rng.random((200, 3)).astype(np.float32)
+    D = np.array([[0.65, 0.70, 0.29], [0.07, 0.99, 0.11]], np.float32)
+    D /= np.linalg.norm(D, axis=1, keepdims=True)
+    want = np.asarray(J["lasso"].nonneg_lasso_fista(X, D, 0.01))
+    got = T["lasso"].nonneg_lasso_fista(torch.from_numpy(X),
+                                        torch.from_numpy(D), 0.01).numpy()
+    assert got.shape == (200, 2) and (got >= 0).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    exact = T["lasso"].nonneg_lasso_k2(torch.from_numpy(X),
+                                       torch.from_numpy(D), 0.01).numpy()
+    np.testing.assert_allclose(got, exact, rtol=0, atol=1e-3)
+
+
+def test_percentile_sequence_q_above_bisection_threshold():
+    """Sequence q over an axis longer than 512^2 (the count-bisection
+    route): q-leading stacking, within 2e-3 of numpy and of JAX
+    (``tests/test_slide_normalize.py:308-319``)."""
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 600_000)).astype(np.float32)
+    q = [1.0, 50.0, 99.0]
+    got = T["percentile"].percentile(torch.from_numpy(x), q, axis=-1).numpy()
+    assert got.shape == (3, 2)
+    want = np.stack([np.percentile(x, v, axis=-1) for v in q])
+    np.testing.assert_allclose(got, want, atol=2e-3)
+    jax_got = np.asarray(J["percentile"].percentile(jnp.asarray(x), q,
+                                                    axis=-1))
+    np.testing.assert_allclose(got, jax_got, atol=2e-3)
