@@ -37,7 +37,19 @@ the card, on uint8 H&E images (random synthetic images from a seed):
   versions byte for byte, the functional path's budget and a second run;
   and the four routes end to end at 4096x4096. Where the host has no
   libtiff the TIFF writer is not run (a line says so) and level 0 is read
-  from the canvas the stream fills.
+  from the canvas the stream fills;
+* the distributed layer (phases 45-47) on an NCCL world of this process
+  alone (``parallel.mesh.make_mesh()``; the cross-rank paths are held by
+  gloo in the CPU tests): ``normalize_batch_sharded`` with K1 and K2 on
+  256 tiles of 256x256, against the direct kernel call, the plain versions
+  and the functional path; ``sharded_concentrations`` and the collectives
+  through NCCL; the streaming feed of BASELINE config #5
+  (``WsiSampler.train_batches`` -> ``DevicePrefetcher`` -> K1, 96 batches
+  of 64 tiles, half from an annotated tumor polygon) off the 16,384^2
+  slide, its tiles/s on the host clock, K1's device time and the device's
+  idle share from a profiler trace; and ``normalize_slide(mesh=...)`` at
+  4096x4096 in slide mode (K3) and tile mode (K1) against the call without
+  a mesh.
 
 It builds the hand-written CUDA kernels from the sources in the checkout,
 counts each kernel's launches over its path, holds every kernel against
@@ -61,7 +73,9 @@ Phases print one line each. Before the last line it prints the card's name
 and power limit (``nvidia-smi``) and a JSON object describing each kernel:
 its launches on its path, its largest difference from its plain version,
 its time and the plain version's, K1's, K2's, K3's and K5's launches on the
-whole-slide phases (``slide_launches``), and ``bound_ms``, the least time the card
+whole-slide phases (``slide_launches``) and K1's, K2's and K3's on phases
+45-47 (``sharded_launches``, ``stream_launches``, ``mesh_slide_launches``),
+and ``bound_ms``, the least time the card
 could take for the same work (the larger of its bytes over 3.35 TB/s and
 its float32 operations over 67 TFLOP/s, counted from the shapes of the
 timed call and the tissue share of its inputs); the last line is
@@ -72,6 +86,7 @@ Imports neither jax nor the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import re
@@ -673,12 +688,13 @@ def parent_phases() -> None:
             assert k["differ_between_trees"] == 0, name
 
 
-# ---- Whole-slide deployment (phases 41-45) ----------------------------------
+# ---- Whole-slide deployment (phases 41-47) ----------------------------------
 
 SLIDE_SIDE = 16384  # 805 MB of level 0, 4,096 tiles of 256^2
 SLIDE_SMALL = (2000, 2300)  # width, height: partial tiles on both edges
 SLIDE_MID = 4096  # 256 tiles: the four routes end to end
 SLIDE_BATCH = 64
+STREAM_BATCHES = 96  # phase 46: the training-tile stream, BASELINE #5
 # Functional-path budgets of the four routes (PERF.md section 2): max u8,
 # and the bound on the share of bytes off by more than 1 or, where the
 # budget counts bytes within 1 (K3, K5), the share allowed beyond 1. K5's
@@ -732,13 +748,14 @@ def trace_activities(prof) -> dict:
 
 
 def slide_phases(dev, smi) -> dict:
-    """Phases 41-45: whole-slide deployment through
+    """Phases 41-47: whole-slide deployment through
     ``normalization.slide.normalize_slide``, the user's entry point (the
     reference's ``tester`` loop): a 16,384^2 slide in slide mode (K3), then
     the four kernel routes (K3, K1, K2, K5) at 2000x2300 against their
-    plain versions and the functional path, and end to end at 4096^2.
-    Returns each route's launches on its main run (phase 42 for K3, phase
-    44 for K1, K2 and K5)."""
+    plain versions and the functional path, and end to end at 4096^2;
+    then :func:`mesh_phases` on these slides. Returns each route's
+    launches on its main run (phase 42 for K3, phase 44 for K1, K2 and K5)
+    and, under ``<route>_<path>``, on the paths of phases 45-47."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -859,13 +876,16 @@ def slide_phases(dev, smi) -> dict:
         t_synth = time.perf_counter() - t0
         big = str(work / "slide16k.wsiraw")
         t0 = time.perf_counter()
-        native.write_wsiraw(big, [lv0])
+        # Level 1, a 1/16 subsample, is where the WSI sampler (phase 46)
+        # finds the tissue; normalize_slide reads level 0 only.
+        native.write_wsiraw(big, [lv0, lv0[::16, ::16].copy()])
         t_write = time.perf_counter() - t0
         s = native.open_slide(big)
         is_native = s.native
         assert isinstance(s, native.RawSlide) and is_native, (
             "the native WSIRAW reader did not load")
         assert s.level_size(0) == (SLIDE_SIDE, SLIDE_SIDE)
+        assert s.level_size(1) == (SLIDE_SIDE // 16, SLIDE_SIDE // 16)
         s.close()
         n_big = (SLIDE_SIDE // SIDE) ** 2
         log(41, f"slide {SLIDE_SIDE}x{SLIDE_SIDE} ({lv0.nbytes / 1e6:.0f} MB "
@@ -1043,6 +1063,273 @@ def slide_phases(dev, smi) -> dict:
                     f"{n_mid} tiles: {n_mid / t['total']:.1f} tiles/s end "
                     f"to end; {fmt_times(t)}; launches {c[route]}; card "
                     f"'{smi}'")
+
+        # 45-47. The distributed layer, the training-tile stream and the
+        # slide over a mesh.
+        launches.update(mesh_phases(dev, smi, work, big, mid, target,
+                                    drive, grid_tiles, assemble, counts,
+                                    reset))
+    return launches
+
+
+def mesh_phases(dev, smi, work, big, mid, target, drive, grid_tiles,
+                assemble, counts, reset) -> dict:
+    """Phases 45-47 on an NCCL world of this process alone
+    (``make_mesh()``; NCCL takes one rank per card, so the cross-rank paths
+    are held by gloo in the CPU tests): 45, ``normalize_batch_sharded``
+    with K1 and K2 on 256 tiles of 256^2, ``sharded_concentrations`` and
+    the collectives through NCCL on CUDA tensors; 46, BASELINE config #5's
+    streaming feed (``WsiSampler.train_batches`` -> ``DevicePrefetcher`` ->
+    K1) off the 16,384^2 slide with one annotated tumor polygon; 47,
+    ``normalize_slide(mesh=...)`` at 4096^2 in slide mode (K3) and tile
+    mode (K1) against the call without a mesh. Every collective has the
+    process group's time limit (``parallel.mesh.TIMEOUT``); the group is
+    torn down at the end. Returns each path's launches."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from stainlib_tpu_torch.data.pipeline import DevicePrefetcher
+    from stainlib_tpu_torch.data.wsi import SamplerConfig, WsiSampler
+    from stainlib_tpu_torch.kernels import macenko_fused as mf
+    from stainlib_tpu_torch.kernels import vahadane_fused as vf
+    from stainlib_tpu_torch.kernels.fused_stain import from_planar, to_planar
+    from stainlib_tpu_torch.normalization import extractive
+    from stainlib_tpu_torch.normalization import slide as sl
+    from stainlib_tpu_torch.ops.lasso import nonneg_lasso_k2
+    from stainlib_tpu_torch.parallel import collectives as pc
+    from stainlib_tpu_torch.parallel.mesh import TIMEOUT, make_mesh
+    from stainlib_tpu_torch.parallel.stain_sharded import (
+        normalize_batch_sharded, sharded_concentrations)
+
+    launches = {}
+    mesh = make_mesh(device=dev.type)
+    try:
+        assert dist.get_world_size() == 1 and dist.get_backend() == (
+            "nccl" if dev.type == "cuda" else "gloo")
+        log(45, f"make_mesh(): {mesh}, backend {dist.get_backend()}, world "
+                f"{dist.get_world_size()}, every collective limited to "
+                f"{TIMEOUT.total_seconds():.0f} s")
+
+        # 45. Sharded normalize: K1 and K2 at the kernels' defaults on this
+        # rank's rows (all 256 at world 1), gathered through NCCL.
+        tgt_np = tiles(1, SIDE, SEED)[0]
+        batch_np = tiles(B, SIDE, SEED + 45)
+        x = torch.from_numpy(batch_np).to(dev)
+        for name, method, mod, kern, plain, gate in (
+                ("K1", "macenko", mf, mf.macenko_normalize_planar,
+                 mf.macenko_normalize_ref, 2),
+                ("K2", "vahadane", vf, vf.vahadane_normalize_planar,
+                 vf.vahadane_normalize_ref, 4)):
+            def sharded(method=method, batch=batch_np):
+                return pc.all_gather_metrics(normalize_batch_sharded(
+                    mesh, tgt_np, batch, method=method, fused=True), mesh)
+
+            mod.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = sharded()
+            torch.cuda.synchronize()
+            t_sh = time.perf_counter() - t0
+            launches[f"{name}_sharded"] = mod.launches
+            assert mod.launches == 1, (name, mod.launches)
+            tp = extractive.fit(torch.from_numpy(tgt_np).to(dev),
+                                method=method)
+            direct = from_planar(kern(to_planar(x).contiguous(), *tp),
+                                 SIDE, SIDE)
+            assert got.shape == x.shape and got.dtype == torch.uint8
+            assert torch.equal(got, direct), (name, "differs from the "
+                                              "direct kernel call")
+            assert torch.equal(got, sharded(batch=x)), (name,
+                                                        "two runs differ")
+            assert torch.equal(got, plain(x, *tp)), (
+                name, "differs from its plain version")
+            mx, share, over = compare(got, extractive.transform(
+                tp, x, method=method))
+            assert mx <= gate and over < 1e-2, (name, mx, over)
+            tgt_t = torch.from_numpy(tgt_np).to(dev)
+
+            def direct_call(kern=kern, method=method):
+                """The same work without the mesh: fit, the kernel."""
+                p = extractive.fit(tgt_t, method=method)
+                return from_planar(kern(to_planar(x).contiguous(), *p),
+                                   SIDE, SIDE)
+
+            # Both on the batch already on the card: the same work but the
+            # mesh's row slice and all-gather.
+            (sa, sb), (da, db) = time_pair(lambda: sharded(batch=x),
+                                           direct_call)
+            log(45, f"normalize_batch_sharded({method}, fused=True) B={B} "
+                    f"{SIDE}^2 on the mesh: {name} launches "
+                    f"{launches[f'{name}_sharded']}; equal byte for byte to "
+                    f"the direct kernel call, to its plain version and to a "
+                    f"second run; vs the functional path max={mx} u8 (gate "
+                    f"<={gate}), share differing={share:.3e}, share>1="
+                    f"{over:.3e}; first call (host tiles) {t_sh * 1e3:.1f} ms "
+                    f"on the host clock; then on the tiles on the card, by "
+                    f"CUDA events (median of {REPS}, in turns direct, "
+                    f"sharded, sharded, direct; each the target's fit and "
+                    f"the kernel) sharded {sa:.3f} / {sb:.3f} ms, direct "
+                    f"{da:.3f} / {db:.3f} ms; card '{smi}'")
+        del x
+
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        od = torch.rand(65536 * 256, 3, device=dev, generator=g)
+        M = extractive.fit(torch.from_numpy(tgt_np).to(dev))[0]
+        conc = pc.all_gather_metrics(sharded_concentrations(mesh, od, M),
+                                     mesh, "data")
+        assert torch.equal(conc, nonneg_lasso_k2(od, M))
+        del od, conc
+        v = torch.randn(1000, 3, device=dev, generator=g)
+        tree = {"v": v, "rows": (v[:7], None)}
+        assert torch.equal(pc.psum_stats(tree, mesh)["v"], v)
+        assert torch.equal(pc.all_gather_metrics(tree, mesh)["rows"][0],
+                           v[:7])
+        assert torch.equal(pc.broadcast_from_zero(tree, mesh)["v"], v)
+        assert torch.equal(pc.pmean_grads(tree, mesh)["v"], v)
+        bf = pc.pmean_grads(tree, mesh, compress=True)["v"]
+        assert bf.dtype == torch.float32
+        assert torch.equal(bf, v.to(torch.bfloat16).float())
+        log(45, f"sharded_concentrations on {65536 * 256:,} x 3 OD pixels "
+                f"equal to nonneg_lasso_k2; psum_stats, all_gather_metrics, "
+                f"broadcast_from_zero and pmean_grads (compress False and "
+                f"True: the bfloat16 rounding) through NCCL on CUDA tensors, "
+                f"each its expected value")
+
+        # 46. BASELINE config #5 (bench.py:224-290): WsiSampler ->
+        # DevicePrefetcher(depth=4, workers=3) -> K1 at its defaults, batches
+        # of 64 with half from the tumor polygon.
+        xml = work / "slide16k.xml"  # matched to the slide by its name
+        xml.write_text(
+            "<ASAP_Annotations><Annotations><Annotation Name=\"t\" "
+            "Type=\"Polygon\"><Coordinates>" + "".join(
+                f'<Coordinate Order="{i}" X="{x}" Y="{y}"/>'
+                for i, (x, y) in enumerate(
+                    (SLIDE_SIDE // 8 * np.array([[1, 1], [7, 1], [7, 6],
+                                                 [1, 6]])).tolist()))
+            + "</Coordinates></Annotation></Annotations></ASAP_Annotations>")
+        cfg = SamplerConfig(tile=SIDE, batch_size=64, batch_tumor_ratio=0.5)
+        t0 = time.perf_counter()
+        sampler = WsiSampler([big], [str(xml)], cfg, seed=SEED)
+        t_init = time.perf_counter() - t0
+        tp = extractive.fit(torch.from_numpy(target).to(dev))
+
+        def stream(traced: bool):
+            """One pass of STREAM_BATCHES batches: (tiles/s on the host
+            clock after the first batch, the first batch and its output,
+            tumor tiles per batch, the trace or None, the stream's s)."""
+            feed = DevicePrefetcher(
+                sampler.train_batches(num_batches=STREAM_BATCHES), depth=4,
+                workers=3, device=dev)
+            first, first_flags = next(feed)
+            out0 = mf.macenko_normalize(first, *tp)
+            torch.cuda.synchronize()
+            flags, acc, count = [first_flags], None, 0
+            with (profile(activities=[ProfilerActivity.CUDA]) if traced
+                  else contextlib.nullcontext()) as prof:
+                t0 = time.perf_counter()
+                for xb, fb in feed:
+                    y = mf.macenko_normalize(xb, *tp)
+                    # A dependent fold keeps every output on the critical
+                    # path (bench.py's drain), the inputs streaming freely.
+                    acc = y if acc is None else torch.maximum(acc, y)
+                    flags.append(fb)
+                    count += xb.shape[0]
+                int(acc.max())
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            return (count / dt, first, out0,
+                    [int(f.sum()) for f in flags], prof, dt)
+
+        host = sampler.train_batches(num_batches=16)
+        t0 = time.perf_counter()
+        for _ in host:
+            pass
+        t_sample = (time.perf_counter() - t0) / 16
+        reset()
+        tps, first, out0, n_tumor, _, dt = stream(traced=False)
+        launches["K1_stream"] = counts()["K1"]
+        assert launches["K1_stream"] == STREAM_BATCHES, counts()
+        assert counts() == dict(K1=STREAM_BATCHES, K2=0, K3=0, K5=0)
+        assert first.shape == (64, SIDE, SIDE, 3) and first.device == dev
+        assert n_tumor == [32] * STREAM_BATCHES, n_tumor
+        assert torch.equal(out0, mf.macenko_normalize_ref(first, *tp)), (
+            "K1 on the first streamed batch differs from its plain version")
+        tps_b, _, _, _, prof, dt_b = stream(traced=True)
+        acts = trace_activities(prof)
+        k1 = [v for k, v in acts.items() if "macenko_apply_kernel" in k]
+        k1_ms = sum(ms for _, ms in k1)
+        busy_ms = sum(ms for _, ms in acts.values())
+        share = (f"K1 {k1_ms:.3f} ms over {sum(c for c, _ in k1)} launches "
+                 f"= {k1_ms / (dt_b * 1e3):.2%} of the traced stream's "
+                 f"{dt_b:.3f} s; all device activity {busy_ms:.3f} ms: the "
+                 f"device idles {1 - busy_ms / (dt_b * 1e3):.2%} of it"
+                 if acts else "the profiler recorded no device activity: "
+                              "K1's device time and the idle share not "
+                              "measured")
+        log(46, f"streaming feed (BASELINE #5) off the {SLIDE_SIDE}^2 "
+                f"slide: WsiSampler(tile={SIDE}, batch_size=64, "
+                f"batch_tumor_ratio=0.5; built in {t_init:.2f} s; one "
+                f"batch alone on one thread {t_sample * 1e3:.1f} ms, "
+                f"{64 / t_sample:.0f} tiles/s) -> "
+                f"DevicePrefetcher(depth=4, workers=3) -> K1 at its "
+                f"defaults; {STREAM_BATCHES} batches, K1 launches "
+                f"{launches['K1_stream']}; tumor tiles per batch {n_tumor}; "
+                f"run A {tps:.1f} tiles/s on the host clock over the "
+                f"{STREAM_BATCHES - 1} batches after the first ({dt:.3f} s); "
+                f"run B, traced, {tps_b:.1f} tiles/s; {share}; device "
+                f"activities {{name: (count, ms)}} "
+                f"{ {k: (c, round(ms, 3)) for k, (c, ms) in acts.items()} }; "
+                f"the first batch equals K1's plain version; card '{smi}'")
+
+        # 47. normalize_slide over the mesh at 4096^2: slide mode (K3) and
+        # tile mode (K1) against the same call without a mesh, and the
+        # plain versions on the same tiles.
+        coords, tl, W, H = grid_tiles(mid)
+        xt = torch.from_numpy(tl).to(dev)
+        n_mid = len(coords)
+        for route, method, est in (("K3", "macenko", "slide"),
+                                   ("K1", "macenko", "tile")):
+            reset()
+            info_m, got, _, _ = drive(mid, str(work / f"mesh_{route}.tif"),
+                                      target, method=method,
+                                      estimation=est, batch=SLIDE_BATCH,
+                                      mesh=mesh)
+            launches[f"{route}_mesh_slide"] = counts()[route]
+            assert info_m["fused"] is True and counts()[route] == -(
+                -n_mid // SLIDE_BATCH) and sum(counts().values()) == counts()[
+                route], (route, counts())
+            _, want, _, _ = drive(mid, str(work / f"one_{route}.tif"),
+                                  target, method=method, estimation=est,
+                                  batch=SLIDE_BATCH)
+            assert np.array_equal(got, want), (route, "the mesh run differs")
+            # End to end in turns: without, with, with, without.
+            rates = {}
+            for m in (None, mesh, mesh, None):
+                _, _, t, _ = drive(mid, str(work / "turns.tif"), target,
+                                   method=method, estimation=est,
+                                   batch=SLIDE_BATCH, mesh=m)
+                rates.setdefault(m is not None, []).append(
+                    n_mid / t["total"])
+            if route == "K3":
+                src = sl.fit_slide(mid, device=dev)
+                plain = mf.normalize_with_matrix_ref(
+                    xt, src.stain_matrix, src.max_c, *tp)
+            else:
+                plain = mf.macenko_normalize_ref(xt, *tp)
+            assert np.array_equal(got, assemble(coords, plain.cpu().numpy(),
+                                                W, H)), (route, "plain")
+            log(47, f"normalize_slide(mesh=make_mesh()) {SLIDE_MID}^2 "
+                    f"{route} ({method}, estimation={est}), {n_mid} tiles: "
+                    f"{route} launches {launches[f'{route}_mesh_slide']}; "
+                    f"level 0 equals the run without a mesh and the plain "
+                    f"version byte for byte; end to end in turns (without, "
+                    f"with, with, without) {rates[True][0]:.1f} / "
+                    f"{rates[True][1]:.1f} tiles/s with the mesh, "
+                    f"{rates[False][0]:.1f} / {rates[False][1]:.1f} without; "
+                    f"card '{smi}'")
+    finally:
+        dist.destroy_process_group()
+    assert not dist.is_initialized()
     return launches
 
 
@@ -1707,6 +1994,11 @@ def run(dev) -> int:
         route = {r[2]: name for name, r in SLIDE_ROUTES.items()}.get(k["name"])
         if route is not None:
             k["slide_launches"] = slide_launches[route]
+            # This slice's paths (phases 45-47): sharded normalize, the
+            # training-tile stream, normalize_slide over a mesh.
+            for path in ("sharded", "stream", "mesh_slide"):
+                if f"{route}_{path}" in slide_launches:
+                    k[f"{path}_launches"] = slide_launches[f"{route}_{path}"]
 
     # Each kernel's bound at the shapes of its timed call, with the tissue
     # share of these inputs (the masked passes count tissue pixels only).

@@ -12,10 +12,15 @@ kernels -> tiled pyramidal TIFF out.
     python scripts/torch_normalize_wsi.py slide.svs out.svs --method vahadane \
         --estimation tile   # the reference's per-patch re-estimation
     python scripts/torch_normalize_wsi.py slide.wsiraw out.tif --device cpu
+    torchrun --nproc-per-node 4 scripts/torch_normalize_wsi.py slide.svs \
+        out.svs --mesh 4   # tile batches sharded over 4 ranks
 
 With no --target, a built-in synthetic H&E target is used (handy for smoke
 runs; real use should pass a reference patch from the template center).
-Writing the TIFF needs libtiff on the host.
+Writing the TIFF needs libtiff on the host. With ``--mesh N`` the tile
+batches are sharded over a mesh of N ranks (``parallel.mesh.make_mesh``):
+N processes under a launcher that sets torchrun's variables, or one
+process for N=1; the first rank writes the output.
 """
 
 import argparse
@@ -63,9 +68,21 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="torch device of the fit and the tiles (cpu: the "
                          "functional path)")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="shard tile batches over a mesh of N ranks "
+                         "(scale-out deployment; batch must divide by N)")
     args = ap.parse_args(argv)
 
     from stainlib_tpu_torch.normalization.slide import normalize_slide
+
+    mesh = None
+    if args.mesh:
+        from stainlib_tpu_torch.parallel.mesh import (
+            initialize_distributed, make_mesh)
+
+        if "WORLD_SIZE" in os.environ:  # under torchrun
+            initialize_distributed(auto=True, device=args.device)
+        mesh = make_mesh(args.mesh, device=args.device)
 
     target = args.target if args.target else _default_target()
 
@@ -84,7 +101,7 @@ def main(argv=None) -> int:
         estimation=args.estimation, tile=args.tile, batch=args.batch,
         level=args.level, n_fit_tiles=args.fit_tiles, seed=args.seed,
         compression=args.compression, quality=args.quality,
-        progress=progress, device=args.device)
+        progress=progress, device=args.device, mesh=mesh)
     dt = time.time() - t0
     rate = info["tiles"] / dt if dt > 0 else float("inf")
     print(f"{info['width']}x{info['height']} ({info['tiles']} tiles, "

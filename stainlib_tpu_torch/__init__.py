@@ -11,9 +11,11 @@ object API, the fused kernels (``kernels/macenko_fused.py``,
 ``kernels/vahadane_fused.py``, ``kernels/fused_stain.py``,
 ``kernels/reinhard_fused.py``), hand-written in CUDA C++ for Hopper
 (``kernels/csrc/``) and built with ``nvcc`` at first use, and whole-slide
-deployment: the native slide readers and the device prefetch ring
-(``data/``, the readers built with ``g++`` at first use) and
-``normalization/slide.py``'s ``normalize_slide``.
+deployment: the native slide readers, the WSI sampler and the device
+prefetch ring (``data/``, the readers built with ``g++`` at first use) and
+``normalization/slide.py``'s ``normalize_slide``; and the distributed
+layer (``parallel/``: process groups, named device meshes, collectives and
+the sharded stain paths on ``torch.distributed``).
 
 Importing the package imports ``torch`` only: never jax, never
 the JAX package, and it builds nothing.

@@ -20,6 +20,13 @@ so the caching allocator does not hand it out again while the consumer's
 work is queued. A pinned buffer is refilled only after the event of its
 last copy has completed. On the CPU a batch is a tensor copy of the host
 array, through the same ordered queue.
+
+A batch is a pytree (``torch.utils._pytree``: tuples, namedtuples, lists,
+dicts) of arrays; ``None`` leaves pass through. Its arrays arrive under
+JAX's dtype rule with 64-bit types off, so a float64 batch lands as
+float32, as from the JAX package's prefetcher. With a ``mesh``, each leaf's
+leading axis is sharded over ``mesh_axis`` and only this rank's rows are
+copied: the counterpart of the JAX prefetcher's ``sharding``.
 """
 
 from __future__ import annotations
@@ -30,23 +37,29 @@ from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_leaves, tree_map
+
+from stainlib_tpu_torch.parallel.mesh import shard_rows
 
 
-def _tree_map(fn, tree):
-    """``fn`` over the leaves of nested tuples, lists and dicts."""
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_tree_map(fn, t) for t in tree)
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+# Host arrays arrive as JAX's ``device_put`` delivers them with 64-bit types
+# off (its default): each 64-bit type narrowed to its 32-bit counterpart.
+_NARROW = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
+           np.dtype(np.uint64): np.uint32,
+           np.dtype(np.complex128): np.complex64}
 
 
-def _leaves(tree):
-    if isinstance(tree, (tuple, list)):
-        return [x for t in tree for x in _leaves(t)]
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    return [tree]
+def _host_array(a):
+    """``a`` as a numpy array under JAX's dtype rule; None stays None."""
+    if a is None:
+        return None
+    a = np.asarray(a)
+    to = _NARROW.get(a.dtype)
+    return a if to is None else a.astype(to)
+
+
+def _tensors(batch) -> list:
+    return [t for t in tree_leaves(batch) if t is not None]
 
 
 class _PinnedSlot:
@@ -76,12 +89,15 @@ class DevicePrefetcher:
 
     def __init__(self, host_iter: Iterator, depth: int = 4,
                  transform: Optional[Callable] = None, workers: int = 1,
-                 device="cuda"):
+                 device="cuda", mesh=None, mesh_axis: str = "data"):
         """``transform(batch) -> array(s)`` runs on a host thread;
         ``workers`` host threads overlap reading and copying; ``device``
         is where the batches land (a CUDA device unless the caller asks
-        for the CPU). A batch is an array or nested tuples, lists and
-        dicts of arrays; it comes out as tensors of the same structure."""
+        for the CPU); with ``mesh`` (a ``DeviceMesh``) each leaf's rows at
+        this rank's coordinate on ``mesh_axis`` are all that is copied.
+        A batch comes out as tensors of the same structure."""
+        self._rows = None if mesh is None else (
+            lambda a: a[shard_rows(mesh, mesh_axis, a.shape)])
         self._device = torch.device(device)
         if self._device.type == "cuda":
             if not torch.cuda.is_available():
@@ -161,22 +177,29 @@ class DevicePrefetcher:
         for t in self._threads:
             t.start()
 
+    def _host(self, a):
+        """A leaf as the host array to copy: this rank's rows of it."""
+        a = _host_array(a)
+        return a if a is None or self._rows is None else self._rows(a)
+
     def _put_to_device(self, batch, transform):
         """(tensors, event): the batch on the device, and the event that
         completes its copy (None on the CPU)."""
         if transform is not None:
             batch = transform(batch)
-        batch = _tree_map(np.asarray, batch)
+        batch = tree_map(self._host, batch)
         if self._device.type != "cuda":
-            return _tree_map(lambda a: torch.from_numpy(np.array(a)),
-                             batch), None
+            return tree_map(lambda a: None if a is None else
+                            torch.from_numpy(np.array(a)), batch), None
         slot = self._slots.get()
         try:
             if slot.event is not None:
                 slot.event.synchronize()  # its last copy has left the buffer
-            leaves = iter(range(len(_leaves(batch))))
+            leaves = iter(range(len(_tensors(batch))))
 
             def copy(a):
+                if a is None:
+                    return None
                 pinned = slot.buffer(next(leaves), a)
                 np.copyto(pinned.numpy(), a)
                 out = torch.empty(a.shape, dtype=pinned.dtype,
@@ -186,7 +209,7 @@ class DevicePrefetcher:
 
             with torch.cuda.device(self._device), \
                     torch.cuda.stream(self._copy_stream):
-                batch = _tree_map(copy, batch)
+                batch = tree_map(copy, batch)
                 slot.event = torch.cuda.Event()
                 slot.event.record(self._copy_stream)
             return batch, slot.event
@@ -206,6 +229,6 @@ class DevicePrefetcher:
         if event is not None:
             stream = torch.cuda.current_stream(self._device)
             stream.wait_event(event)
-            for t in _leaves(batch):
+            for t in _tensors(batch):
                 t.record_stream(stream)
         return batch

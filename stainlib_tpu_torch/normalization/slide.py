@@ -27,8 +27,15 @@ Every public function takes a ``device``, ``"cuda"`` unless the caller asks
 for the CPU. The kernels run on a CUDA device for tiles the JAX package's
 kernels take (``tile**2`` a multiple of 128, at most 512**2); otherwise, and
 on the CPU, the functional path runs, as it does in the JAX package off the
-TPU. The JAX signatures' ``interpret`` (TPU only) and ``mesh`` /
-``mesh_axis`` (the distributed layer) have no counterpart here.
+TPU. The JAX signatures' ``interpret`` (TPU only) has no counterpart here.
+
+Scale-out: with a ``mesh`` (``parallel.mesh.make_mesh``), every rank reads
+the same host batches, copies and normalizes only its rows (the batch
+sharded over ``mesh_axis``) on its route, and all-gathers the rows along
+that axis, so every rank fills the whole canvas; the first rank of the
+mesh writes the TIFF. The bytes equal the single-device path's: every
+route works tile by tile (K3 and the slide-mode functional paths pixel by
+pixel), so no tile's result depends on which rank holds it.
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ from stainlib_tpu_torch.kernels.reinhard_fused import reinhard_normalize
 from stainlib_tpu_torch.kernels.vahadane_fused import vahadane_normalize
 from stainlib_tpu_torch.normalization import extractive, reinhard
 from stainlib_tpu_torch.ops.percentile import percentile
+from stainlib_tpu_torch.parallel.collectives import all_gather_metrics
 
 # Above this many bytes a canvas/pyramid level is backed by a disk memmap
 # instead of host RAM: the reference's ``tester`` deployment iterates 100k+
@@ -167,15 +175,30 @@ def _f32(x, dev):
 
 
 def _make_apply(method: str, estimation: str, target_params, src,
-                tile: int, regularizer: float, device="cuda"):
+                tile: int, regularizer: float, device="cuda", mesh=None,
+                mesh_axis: str = "data"):
     """Returns ((B, t, t, 3) uint8 -> (B, t, t, 3) uint8 on ``device``,
     fused: bool); ``fused`` reports whether the branch taken runs a kernel.
 
     The target's and the slide's values move to the device once, as
     float32 tensors; the kernels take them by pointer, so a batch is one
     launch. Every kernel reads the interleaved tiles as they come: there
-    is no planar transpose."""
-    dev = torch.device(device)
+    is no planar transpose.
+
+    With ``mesh`` set, the function takes this rank's rows of the batch
+    (the prefetcher's shard over ``mesh_axis``), normalizes them and
+    returns the whole batch, all-gathered along ``mesh_axis``: the
+    counterpart of the JAX package's ``shard_map`` over that axis."""
+    apply, fused = _make_core(method, estimation, target_params, src, tile,
+                              regularizer, torch.device(device))
+    if mesh is None:
+        return apply, fused
+    return (lambda b: all_gather_metrics(apply(b), mesh, mesh_axis)), fused
+
+
+def _make_core(method, estimation, target_params, src, tile, regularizer,
+               dev):
+    """:func:`_make_apply`'s route on one device."""
     fused = _use_fused(tile, dev)
 
     if method == "reinhard":
@@ -240,10 +263,13 @@ def build_pyramid(level0: np.ndarray, min_dim: int = 512):
 
 def _stream_canvas(slide, level: int, tile: int, batch: int, W: int, H: int,
                    apply_fn, progress, prefetch_depth: int,
-                   prefetch_workers: int, device="cuda"):
+                   prefetch_workers: int, device="cuda", mesh=None,
+                   mesh_axis: str = "data"):
     """Stream the tile grid through ``apply_fn(dev_batch, batch_index)``
     (threaded decode -> prefetch ring -> device -> host) into an
-    (H, W, 3) canvas; returns (canvas, number of tiles)."""
+    (H, W, 3) canvas; returns (canvas, number of tiles). With ``mesh``,
+    the ring copies only this rank's rows of each batch (``apply_fn``
+    returns the whole batch)."""
     coords = _grid_coords(W, H, tile)
     n_batches = math.ceil(len(coords) / batch)
     canvas = _alloc_u8((H, W, 3))
@@ -265,7 +291,8 @@ def _stream_canvas(slide, level: int, tile: int, batch: int, W: int, H: int,
                     for x, y in padded])
 
     pf = DevicePrefetcher(host_batches(), depth=prefetch_depth,
-                          workers=prefetch_workers, device=device)
+                          workers=prefetch_workers, device=device, mesh=mesh,
+                          mesh_axis=mesh_axis)
     for bi, dev_batch in enumerate(pf):
         out = apply_fn(dev_batch, bi).cpu().numpy()  # on the compute stream
         for (x, y), img in zip(chunks[bi], out):
@@ -296,6 +323,8 @@ def normalize_slide(
     prefetch_workers: int = 2,
     progress: Optional[Callable[[int, int], None]] = None,
     device="cuda",
+    mesh=None,
+    mesh_axis: str = "data",
 ) -> dict:
     """Normalize every tile of a WSI toward ``target`` and write a tiled
     pyramidal TIFF. Returns a summary dict (dims, tiles, modes, and
@@ -306,6 +335,11 @@ def normalize_slide(
     ``estimation``: 'slide' (one stain estimate for the whole slide;
     seam-free, fastest) or 'tile' (the reference's per-patch re-estimation,
     ``normalizer.py:45-48``). ``device``: where the fit and the tiles run.
+    ``mesh``: an optional ``DeviceMesh`` (every rank of it calls this with
+    the same arguments): tile batches are sharded over ``mesh_axis``, each
+    rank normalizes its rows, and the first rank of the mesh writes the
+    output, bit-identical to the single-device path's. ``batch`` must be a
+    multiple of the mesh's ``mesh_axis`` axis size.
     """
     method = method.lower()
     if method not in ("macenko", "vahadane", "reinhard"):
@@ -342,16 +376,34 @@ def normalize_slide(
                                 n_tiles=n_fit_tiles, seed=seed,
                                 regularizer=regularizer, device=dev)
 
+        if mesh is not None:
+            names = mesh.mesh_dim_names or ()
+            if mesh_axis not in names:
+                raise ValueError(
+                    f"mesh_axis {mesh_axis!r} not in mesh axes "
+                    f"{tuple(names)}")
+            # Divisibility is against the SHARDED axis, not the total
+            # device count: on a multi-axis mesh the batch only splits
+            # over mesh_axis (other axes replicate the shard).
+            axis_size = mesh.size(names.index(mesh_axis))
+            if batch % axis_size:
+                raise ValueError(
+                    f"batch ({batch}) must be a multiple of the mesh's "
+                    f"{mesh_axis!r} axis size ({axis_size})")
+
         apply_fn, fused = _make_apply(method, estimation, target_params, src,
-                                      tile, regularizer, dev)
+                                      tile, regularizer, dev, mesh=mesh,
+                                      mesh_axis=mesh_axis)
         canvas, n_tiles = _stream_canvas(
             slide, level, tile, batch, W, H,
             lambda dev_batch, _bi: apply_fn(dev_batch), progress,
-            prefetch_depth, prefetch_workers, device=dev)
+            prefetch_depth, prefetch_workers, device=dev, mesh=mesh,
+            mesh_axis=mesh_axis)
 
         levels = build_pyramid(canvas, min_dim=min_pyramid)
-        write_tiff_pyramid(out_path, levels, tile=tile,
-                           compression=compression, quality=quality)
+        if mesh is None or mesh.get_rank() == int(mesh.mesh.flatten()[0]):
+            write_tiff_pyramid(out_path, levels, tile=tile,
+                               compression=compression, quality=quality)
         return {
             "width": W,
             "height": H,

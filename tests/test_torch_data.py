@@ -7,9 +7,12 @@ The counterparts of ``tests/test_native_data.py``,
 written by either; every reader, the sampler (same seed), the HSV tissue
 mask and the planar repack must give the JAX package's bytes exactly. The
 prefetcher runs on the CPU device here (its CUDA ring is held in
-``tests/test_torch_slide_cuda.py``).
+``tests/test_torch_slide_cuda.py`` and ``test_torch_parallel_cuda.py``):
+its batch structures and dtypes against JAX's prefetcher, its mesh rows on
+a 2-rank gloo world (``tests/_torch_mp_worker.py``).
 """
 
+import collections
 import subprocess
 import threading
 from pathlib import Path
@@ -25,6 +28,7 @@ from stainlib_tpu.data import native as jn  # noqa: E402
 from stainlib_tpu.data import preprocessing as jax_pre  # noqa: E402
 from stainlib_tpu_torch.data import manifests, native, preprocessing  # noqa: E402
 from stainlib_tpu_torch.data.pipeline import DevicePrefetcher  # noqa: E402
+from tests._torch_mp_worker import run_world  # noqa: E402
 from tests.synth import he_patch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -358,3 +362,85 @@ def test_prefetcher_defaults_to_cuda():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             DevicePrefetcher(iter([np.zeros(2)]))
+
+
+# ---------------------------------------------------------------------------
+# Batch structures and dtypes as the JAX prefetcher delivers them
+# (``stainlib_tpu/data/pipeline.py:51``: ``jax.tree.map`` + ``device_put``)
+# ---------------------------------------------------------------------------
+
+Pair = collections.namedtuple("Pair", "tiles labels")
+
+
+def _jax_feed(batches):
+    from stainlib_tpu.data.pipeline import DevicePrefetcher as JaxPrefetcher
+
+    return list(JaxPrefetcher(iter(batches), depth=2))
+
+
+def _same_tree(got, want):
+    """Same structure (namedtuples by type, dicts by key), ``None`` where
+    JAX has ``None``, and leaves of the same dtype and values."""
+    if want is None:
+        assert got is None
+    elif isinstance(want, (tuple, list)):
+        assert type(got) is type(want) and len(got) == len(want)
+        for g, w in zip(got, want):
+            _same_tree(g, w)
+    elif isinstance(want, dict):
+        assert type(got) is dict and got.keys() == want.keys()
+        for k in want:
+            _same_tree(got[k], want[k])
+    else:
+        w = np.asarray(want)
+        assert isinstance(got, torch.Tensor)
+        assert str(got.dtype) == f"torch.{w.dtype}", (got.dtype, w.dtype)
+        assert np.array_equal(got.numpy(), w)
+
+
+@pytest.mark.parametrize("case", ["namedtuple", "none_leaf", "dtypes"])
+def test_prefetcher_batches_match_jax(case):
+    """A namedtuple comes back as the same namedtuple, ``None`` leaves pass
+    through, and 64-bit arrays arrive as JAX delivers them (x64 off):
+    float64 -> float32, int64 -> int32, uint64 -> uint32, complex128 ->
+    complex64."""
+    rng = np.random.default_rng(3)
+    tiles = rng.integers(0, 256, (3, 4, 4, 3), np.uint8)
+    if case == "namedtuple":
+        batches = [Pair(tiles + i, rng.random(3) > 0.5) for i in range(4)]
+    elif case == "none_leaf":
+        batches = [(tiles + i, None) for i in range(4)]
+    else:
+        batches = [{"f": rng.random((3, 2)), "i": np.arange(3) + i,
+                    "u": np.arange(3, dtype=np.uint64),
+                    "c": np.ones(2, np.complex128), "s": 1.5,
+                    "h": rng.random(2).astype(np.float16)}
+                   for i in range(4)]
+    got = list(DevicePrefetcher(iter(batches), depth=2, workers=2,
+                                device="cpu"))
+    want = _jax_feed(batches)
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        _same_tree(g, w)
+    if case == "dtypes":
+        assert {k: v.dtype for k, v in got[0].items()} == dict(
+            f=torch.float32, i=torch.int32, u=torch.uint32,
+            c=torch.complex64, s=torch.float32, h=torch.float16)
+
+
+def test_prefetcher_mesh_copies_this_ranks_rows(tmp_path):
+    """With a 2-rank 'data' mesh each rank receives only its half of every
+    leaf's leading axis (JAX's ``sharding=NamedSharding(mesh, P('data'))``
+    places the same halves on the two devices), ``None`` leaves kept; a
+    leaf with no leading axis to split raises."""
+    rng = np.random.default_rng(4)
+    tiles = rng.integers(0, 256, (5, 4, 8, 8, 3), np.uint8)
+    flags = rng.random((5, 4)) > 0.5
+    outs = run_world("prefetch", 2, tmp_path, dict(tiles=tiles, flags=flags))
+    for r, o in enumerate(outs):
+        assert int(o["rows"][0]) == 2 * r
+        assert np.array_equal(o["tiles"], tiles[:, 2 * r:2 * r + 2])
+        assert np.array_equal(o["flags"], flags[:, 2 * r:2 * r + 2])
+        assert str(o["flag_dtype"]) == "torch.bool"
+        assert "divisible by 2, but it is equal to None" in str(
+            o["err_scalar"])

@@ -106,10 +106,17 @@ def test_wrappers_on_cpu_tensors():
 
 
 def test_import_needs_no_jax_and_builds_nothing():
-    code = ("import sys, torch, stainlib_tpu_torch\n"
+    code = ("import sys, runpy, torch, stainlib_tpu_torch\n"
             "from stainlib_tpu_torch.kernels import _build\n"
+            "from stainlib_tpu_torch.parallel import (\n"
+            "    collectives, mesh, stain_sharded)\n"
+            "from stainlib_tpu_torch.data import pipeline, wsi\n"
+            "from stainlib_tpu_torch.normalization import slide\n"
+            "runpy.run_path('tests/_torch_mp_worker.py')\n"
+            "runpy.run_path('scripts/torch_dryrun_multichip.py')\n"
             "assert 'jax' not in sys.modules\n"
             "assert 'stainlib_tpu' not in sys.modules\n"
+            "assert not torch.distributed.is_initialized()\n"
             "assert _build._lib is None and not _build.build_info\n"
             "assert not torch.backends.cuda.matmul.allow_tf32\n"
             "assert not torch.backends.cudnn.allow_tf32\n")
@@ -117,5 +124,8 @@ def test_import_needs_no_jax_and_builds_nothing():
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                    check=True, timeout=120)
     pattern = re.compile(r"^\s*(import|from) (jax|stainlib_tpu)\b", re.M)
-    for src in (ROOT / "stainlib_tpu_torch").rglob("*.py"):
+    sources = [*(ROOT / "stainlib_tpu_torch").rglob("*.py"),
+               *(ROOT / "scripts").glob("torch_*.py"),
+               ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_mp_worker.py"]
+    for src in sources:
         assert not pattern.search(src.read_text()), src

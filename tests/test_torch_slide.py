@@ -16,6 +16,8 @@ which are read back and compared. Tolerances:
   (``tests/test_torch_macenko.py:37``, ``tests/test_torch_reinhard.py:53``).
   The kernel route is held in ``tests/test_torch_slide_kernel.py``.
 * ``build_pyramid`` and the memmap canvas: identical bytes.
+* ``normalize_slide(mesh=...)`` on a 2-rank gloo world
+  (``tests/_torch_mp_worker.py``): the single-device bytes.
 """
 
 import inspect
@@ -37,6 +39,7 @@ from stainlib_tpu.ops.tissue import tissue_mask as jax_mask  # noqa: E402
 from stainlib_tpu_torch import convert  # noqa: E402
 from stainlib_tpu_torch.data import native  # noqa: E402
 from stainlib_tpu_torch.normalization import slide  # noqa: E402
+from tests._torch_mp_worker import run_world  # noqa: E402
 from tests.synth import he_batch, he_patch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -301,3 +304,53 @@ def test_cli_script_runs_on_the_cpu(tmp_path, slide_raw):
     assert "330x370 (9 tiles" in proc.stdout and "fused=False" in proc.stdout
     assert _read0(out).shape == (H, W, 3)
 
+
+
+@requires_tiff
+def test_normalize_slide_over_a_mesh_equals_single_device(tmp_path,
+                                                          slide_raw):
+    """On a 2-rank gloo world (``tests/_torch_mp_worker.py``), slide-mode
+    Macenko and tile-mode Reinhard over ``mesh=make_mesh()``: each rank
+    normalizes its rows of each batch of 4 (the trailing batch padded),
+    every rank's canvas equals the single-device canvas byte for byte, and
+    only the first rank writes, the single-device file's bytes. JAX's
+    errors for an unknown axis and a batch the axis does not divide."""
+    target = he_patch(TILE, TILE, seed=40, stain=TGT_STAIN,
+                      background_frac=0.0)
+    outs = run_world("slide", 2, tmp_path, dict(
+        src=slide_raw, target=target, tile=np.array(TILE),
+        workdir=str(tmp_path)))
+    for name in ("macenko_slide", "reinhard_tile"):
+        single = _read0(str(tmp_path / f"{name}_0.tif"))
+        assert np.array_equal(_read0(str(tmp_path / f"{name}_mesh.tif")),
+                              single)
+        for r, o in enumerate(outs):
+            assert o[f"{name}_canvas"].shape == (H, W, 3)
+            assert np.array_equal(o[f"{name}_canvas"], single), (name, r)
+            assert np.array_equal(o[f"{name}_single"], single), (name, r)
+            assert bool(o[f"{name}_written"]) == (r == 0)
+        assert np.abs(single[100:300, 50:300].astype(int)
+                      - _level0(seed=1)[100:300, 50:300]).mean() > 2.0
+    for o in outs:
+        assert str(o["err_axis"]) == ("mesh_axis 'tiles' not in mesh axes "
+                                      "('data',)")
+        assert str(o["err_batch"]) == ("batch (3) must be a multiple of the "
+                                       "mesh's 'data' axis size (2)")
+
+
+@requires_tiff
+def test_cli_script_mesh_of_one(tmp_path, slide_raw):
+    """``--mesh 1`` (a world of this process alone, no launcher) writes
+    the bytes of the run without a mesh."""
+    outs = []
+    for mesh in ("0", "1"):
+        out = str(tmp_path / f"cli_{mesh}.tif")
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "scripts" / "torch_normalize_wsi.py"),
+             slide_raw, out, "--device", "cpu", "--tile", str(TILE),
+             "--batch", "4", "--fit-tiles", "4", "--compression", "none",
+             "--mesh", mesh],
+            capture_output=True, text=True, cwd=ROOT, timeout=300)
+        assert proc.returncode == 0, proc.stderr
+        outs.append(_read0(out))
+    assert np.array_equal(outs[0], outs[1])
