@@ -49,7 +49,21 @@ the card, on uint8 H&E images (random synthetic images from a seed):
   slide, its tiles/s on the host clock, K1's device time and the device's
   idle share from a profiler trace; and ``normalize_slide(mesh=...)`` at
   4096x4096 in slide mode (K3) and tile mode (K1) against the call without
-  a mesh.
+  a mesh;
+* the flow + GMM colour model and its trainer (phases 48-51; no kernel of
+  K1-K10 runs there, the convolutions are cuDNN's in float32): a small
+  flow on the card against the CPU with the same weights and probes (z,
+  delta_logp, the loss, the gradients, one step, the inverse);
+  ``reference_capacity()`` (502,855 parameters, 256x256, batch 8 tiles of
+  the port's synthetic cohort) for 10 train steps, its first step,
+  ms/step and imgs/s by CUDA events, peak memory, a profiler trace of two
+  steps (the device's idle share, its five longest activities), two
+  replays of three steps (bit-identical or not, and under
+  ``cudnn.deterministic`` where not), a checkpoint at step 5 resumed to
+  step 6's loss bit for bit, and the inverse on two tiles;
+  ``bench.py --config flow``'s shape (32x32, batch 64) in imgs/s; and
+  ``scripts/torch_train_flow.py`` on the 16,384^2 slide with its polygon,
+  6 steps, then ``--resume``.
 
 It builds the hand-written CUDA kernels from the sources in the checkout,
 counts each kernel's launches over its path, holds every kernel against
@@ -747,13 +761,15 @@ def trace_activities(prof) -> dict:
             if getattr(e, "device_time_total", 0.0) > 0}
 
 
-def slide_phases(dev, smi) -> dict:
+def slide_phases(dev, smi, then=None) -> dict:
     """Phases 41-47: whole-slide deployment through
     ``normalization.slide.normalize_slide``, the user's entry point (the
     reference's ``tester`` loop): a 16,384^2 slide in slide mode (K3), then
     the four kernel routes (K3, K1, K2, K5) at 2000x2300 against their
     plain versions and the functional path, and end to end at 4096^2;
-    then :func:`mesh_phases` on these slides. Returns each route's
+    then :func:`mesh_phases` on these slides, and ``then(dev, smi, work,
+    big)`` while the work directory and the 16,384^2 slide (with its
+    polygon, ``slide16k.xml``) still exist. Returns each route's
     launches on its main run (phase 42 for K3, phase 44 for K1, K2 and K5)
     and, under ``<route>_<path>``, on the paths of phases 45-47."""
     import tempfile
@@ -1069,6 +1085,8 @@ def slide_phases(dev, smi) -> dict:
         launches.update(mesh_phases(dev, smi, work, big, mid, target,
                                     drive, grid_tiles, assemble, counts,
                                     reset))
+        if then is not None:  # phases that use the slide and its polygon
+            then(dev, smi, work, big)
     return launches
 
 
@@ -1331,6 +1349,285 @@ def mesh_phases(dev, smi, work, big, mid, target, drive, grid_tiles,
         dist.destroy_process_group()
     assert not dist.is_initialized()
     return launches
+
+
+# ---- Phases 48-51: the flow + GMM colour model and its trainer ------------
+# No kernel of K1-K10 runs here: the flow's convolutions are cuDNN's
+# (float32; the package turns TF32 off), as the JAX package's are XLA's
+# outside any Pallas kernel.
+FLOW_SMALL = dict(image_size=16, n_scales=2, blocks_per_scale=2, hidden=8,
+                  n_power_series=3, lr=1e-3, warmup_iters=0)
+FLOW_BATCH, FLOW_STEPS = 8, 10  # reference_capacity() at its published batch
+FLOW_CAPACITY_PARAMS = 502_855  # reference_capacity()'s parameter count
+# bench.py:427-468's flow configuration and batch.
+FLOW_BENCH = dict(image_size=32, n_scales=2, blocks_per_scale=2, hidden=32,
+                  n_clusters=4, warmup_iters=10)
+FLOW_BENCH_BATCH, FLOW_BENCH_STEPS = 64, 20
+
+
+def _tree_diff(a, b, relative=False) -> float:
+    """Largest |a - b| over the tensor leaves of two pytrees (divided by
+    each leaf's largest |b| where ``relative``), on the CPU."""
+    from torch.utils._pytree import tree_leaves
+
+    worst = 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        if isinstance(x, torch.Tensor):
+            x, y = x.detach().cpu().double(), y.detach().cpu().double()
+            d = float((x - y).abs().max()) if x.numel() else 0.0
+            if relative:
+                d /= max(float(y.abs().max()), 1e-30)
+            worst = max(worst, d)
+    return worst
+
+
+def _tree_equal(a, b) -> bool:
+    from torch.utils._pytree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        for x, y in zip(la, lb))
+
+
+def flow_phases(dev, smi, work: Path, big: str) -> None:
+    """Phases 48-51: the flow + GMM colour model (``models/``) and its
+    trainer on the card. 48, a small flow on the card against the CPU with
+    the same weights and probes; 49, ``reference_capacity()`` (502,855
+    parameters, 256^2, batch 8) trained for 10 steps, timed, traced,
+    replayed for determinism and resumed from a checkpoint; 50,
+    ``bench.py --config flow``'s shape; 51, ``scripts/torch_train_flow.py``
+    on the 16,384^2 slide of phase 41 with its polygon of phase 46, then
+    ``--resume``."""
+    from torch.func import functional_call
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._pytree import tree_map
+
+    from stainlib_tpu_torch.data import synthetic
+    from stainlib_tpu_torch.models import train_flow as tf
+    from stainlib_tpu_torch.ops.colorspace import rgb_to_hsd
+    from stainlib_tpu_torch.utils import checkpoint as ck
+
+    def on(state, d):
+        """A FlowState on device ``d``, its generator seeded there."""
+        moved = tree_map(lambda t: t.to(d) if isinstance(t, torch.Tensor)
+                         else t, state._replace(rng=None))
+        return moved._replace(
+            rng=torch.Generator(device=d).manual_seed(SEED).get_state())
+
+    def d01(hsd):
+        return torch.clamp(hsd[..., 2:3] / 4.0, 1e-4, 1 - 1e-4).permute(
+            0, 3, 1, 2)
+
+    def cohort(n, side, seed):
+        """``n`` uint8 tiles of the synthetic cohort, four centers, in a
+        seeded order (so that every batch mixes the centers)."""
+        rgb = np.concatenate([synthetic.center_tiles(
+            c, n // 4, side, side, seed=seed + c) for c in range(4)])
+        return rgb[np.random.default_rng(seed).permutation(len(rgb))]
+
+    # 48. A small flow on the card against the CPU: the same converted
+    # weights, the same probes. Tolerances: z atol 1e-4, delta_logp rtol
+    # 1e-4, the loss rtol 1e-5 (cuDNN's convolutions round otherwise than
+    # the CPU's),
+    # each gradient leaf 1e-3 of its largest value, the parameters after
+    # one Adam step within the learning rate (Adam's first step is
+    # lr * g / (|g| + eps), which moves a near-zero gradient's rounding to
+    # a full step), the inverse round trip 1e-4.
+    cfg = tf.FlowConfig(**FLOW_SMALL)
+    hsd_c = rgb_to_hsd(torch.from_numpy(cohort(8, 16, SEED + 48)))
+    flow_c, gmm_c, st_c, tx = tf.init_flow_state(cfg, SEED, hsd_c, "cpu")
+    flow_g, gmm_g = tf.build_models(cfg, dev)
+    st_g, hsd_g = on(st_c, dev), hsd_c.to(dev)
+    probes_c = flow_c.draw_probes(d01(hsd_c).shape,
+                                  torch.Generator().manual_seed(SEED))
+    probes_g = [p.to(dev) for p in probes_c]
+    fwd = {}
+    for name, f, st, x, pr in (("cpu", flow_c, st_c, hsd_c, probes_c),
+                               ("card", flow_g, st_g, hsd_g, probes_g)):
+        with torch.no_grad():
+            z, dl = functional_call(f, {**st.params["flow"], **st.spectral},
+                                    (d01(x),), {"probes": pr})
+        fwd[name] = (z, dl)
+    loss_c, g_c = tf.loss_and_grads(flow_c, gmm_c, cfg, st_c.params,
+                                    st_c.spectral, hsd_c, probes_c)
+    loss_g, g_g = tf.loss_and_grads(flow_g, gmm_g, cfg, st_g.params,
+                                    st_g.spectral, hsd_g, probes_g)
+    new_c, _ = tf.make_train_step(flow_c, gmm_c, cfg, tx)(st_c, hsd_c,
+                                                          probes_c)
+    new_g, _ = tf.make_train_step(flow_g, gmm_g, cfg, tx)(st_g, hsd_g,
+                                                          probes_g)
+    flow_g.load_state_dict({**st_g.params["flow"], **st_g.spectral})
+    with torch.no_grad():
+        back = flow_g.inverse(fwd["card"][0])
+    err = dict(
+        z=_tree_diff(fwd["card"][0], fwd["cpu"][0]),
+        delta_logp=_tree_diff(fwd["card"][1], fwd["cpu"][1], True),
+        loss=abs(float(loss_g) - float(loss_c)) / abs(float(loss_c)),
+        grads=_tree_diff(g_g, g_c, True),
+        params=_tree_diff(new_g.params, new_c.params),
+        spectral=_tree_diff(new_g.spectral, new_c.spectral),
+        inverse=_tree_diff(back, d01(hsd_g)))
+    log(48, "small flow (16^2, 2 scales x 2 blocks, hidden 8, 3 series "
+            "terms, batch 8) card against CPU, same weights and probes: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+            + f" (z, params, spectral, inverse: max abs; delta_logp, loss, "
+              f"grads: relative); card '{smi}'")
+    assert err["z"] <= 1e-4 and err["delta_logp"] <= 1e-4, err
+    assert err["loss"] <= 1e-5 and err["grads"] <= 1e-3, err
+    assert err["params"] <= cfg.lr * 1.01 and err["inverse"] <= 1e-4, err
+    assert err["spectral"] <= 1e-4, err
+
+    # 49. reference_capacity() on the card: 10 steps at 256^2, batch 8.
+    cfg = tf.reference_capacity()
+    pool = rgb_to_hsd(torch.from_numpy(
+        cohort(FLOW_BATCH * FLOW_STEPS, cfg.image_size, SEED + 49)).to(dev))
+    batches = [pool[i * FLOW_BATCH:(i + 1) * FLOW_BATCH]
+               for i in range(FLOW_STEPS)]
+    flow, gmm, st0, tx = tf.init_flow_state(cfg, SEED, batches[0], dev)
+    n_params = sum(p.numel() for part in st0.params.values()
+                   for p in part.values())
+    assert n_params == FLOW_CAPACITY_PARAMS, n_params
+    step = tf.make_train_step(flow, gmm, cfg, tx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st, loss = step(st0, batches[0])
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    losses, states = [loss], [st]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for i in range(1, FLOW_STEPS):
+        st, loss = step(st, batches[i])
+        losses.append(loss)
+        states.append(st)
+    ev[1].record()
+    torch.cuda.synchronize()
+    ms = ev[0].elapsed_time(ev[1]) / (FLOW_STEPS - 1)
+    peak = torch.cuda.max_memory_allocated()
+    bpd = [float(v) for v in losses]
+    assert all(np.isfinite(bpd)), bpd
+    log(49, f"reference_capacity(): {n_params:,} parameters, {cfg.image_size}"
+            f"^2, batch {FLOW_BATCH}, {FLOW_STEPS} steps, bpd "
+            f"{bpd[0]:.4f} -> {bpd[-1]:.4f} (all finite); first step "
+            f"{first_s:.2f} s; steps 2-{FLOW_STEPS} {ms:.1f} ms/step = "
+            f"{FLOW_BATCH * 1e3 / ms:.2f} imgs/s (CUDA events); peak "
+            f"allocated {peak / 2**30:.2f} GiB; card '{smi}'")
+
+    # Where the time goes: two steps traced on the device.
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[:2]:
+            st, _ = step(st, b)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    acts = trace_activities(prof)
+    busy = sum(ms_ for _, ms_ in acts.values())
+    top = sorted(acts.items(), key=lambda kv: -kv[1][1])[:5]
+    log(49, f"two traced steps: {wall_ms:.1f} ms on the host clock, device "
+            f"busy {busy:.1f} ms, idle {1 - busy / wall_ms:.2%}; top device "
+            f"activities: " + "; ".join(
+                f"{k[:70]} x{n} {t:.1f} ms ({t / busy:.1%})"
+                for k, (n, t) in top))
+
+    # Determinism: the same three steps twice from one state.
+    def replay():
+        s, out = states[-1], []
+        for b in batches[:3]:
+            s, l = step(s, b)
+            out.append(l)
+        torch.cuda.synchronize()
+        return out, s
+
+    def replay_ms():
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        e[0].record()
+        replay()
+        e[1].record()
+        torch.cuda.synchronize()
+        return e[0].elapsed_time(e[1]) / 3
+
+    (la, sa), (lb, sb) = replay(), replay()
+    same = _tree_equal(la, lb) and _tree_equal(sa, sb)
+    msg = (f"the same three steps twice from one state: losses and state "
+           f"{'bit-identical' if same else 'differ'} (max |diff| params "
+           f"{_tree_diff(sa.params, sb.params):.3e}, losses "
+           f"{_tree_diff(la, lb):.3e}); default cuDNN {replay_ms():.1f} "
+           f"ms/step")
+    if not same:
+        with torch.backends.cudnn.flags(enabled=True, deterministic=True,
+                                        benchmark=False):
+            (la, sa), (lb, sb) = replay(), replay()
+            det = _tree_equal(la, lb) and _tree_equal(sa, sb)
+            msg += (f"; under cudnn.deterministic "
+                    f"{'bit-identical' if det else 'still differ'}, "
+                    f"{replay_ms():.1f} ms/step")
+    log(49, msg)
+
+    # Checkpoint at step 5, restore into a state from another seed, take
+    # step 6: the uninterrupted run's loss, bit for bit.
+    ck.save_checkpoint(str(work / "flow_ckpt"), states[4], states[4].step)
+    _, _, fresh, _ = tf.init_flow_state(cfg, SEED + 1, batches[1], dev)
+    restored = ck.restore_checkpoint(str(work / "flow_ckpt"), fresh)
+    assert restored.step == 5 and _tree_equal(restored, states[4])
+    r6, loss6 = step(restored, batches[5])
+    assert torch.equal(loss6, losses[5]), (float(loss6), bpd[5])
+
+    # The inverse on 2 tiles: z = flow(x), x' = flow.inverse(z).
+    flow.load_state_dict({**st.params["flow"], **st.spectral})
+    x = d01(batches[0][:2])
+    with torch.no_grad():
+        back = flow.inverse(flow(x, skip_logdet=True)[0])
+    inv = float((back - x).abs().max())
+    log(49, f"checkpoint at step 5 restored into a fresh state: step 6's "
+            f"loss {float(loss6):.6f} equals the uninterrupted run's; "
+            f"inverse(forward(x)) on 2 tiles max |err| {inv:.3e}")
+    assert inv <= 1e-3, inv
+
+    # 50. bench.py --config flow's shape: 32^2, 2 scales x 2 blocks,
+    # hidden 32, batch 64; imgs/s over a chain of steps after the first.
+    cfg = tf.FlowConfig(**FLOW_BENCH)
+    hsd = rgb_to_hsd(torch.from_numpy(
+        tiles(FLOW_BENCH_BATCH, 32, SEED + 50)).to(dev))
+    flow, gmm, st, tx = tf.init_flow_state(cfg, SEED, hsd, dev)
+    step = tf.make_train_step(flow, gmm, cfg, tx)
+    st, loss = step(st, hsd)
+    torch.cuda.synchronize()
+    ev[0].record()
+    for _ in range(FLOW_BENCH_STEPS):
+        st, loss = step(st, hsd)
+    ev[1].record()
+    torch.cuda.synchronize()
+    ms = ev[0].elapsed_time(ev[1]) / FLOW_BENCH_STEPS
+    assert np.isfinite(float(loss))
+    log(50, f"bench.py --config flow's shape (32^2, 2 scales x 2 blocks, "
+            f"hidden 32, batch {FLOW_BENCH_BATCH}): {ms:.2f} ms/step = "
+            f"{FLOW_BENCH_BATCH * 1e3 / ms:.1f} imgs/s over "
+            f"{FLOW_BENCH_STEPS} chained steps (CUDA events); card '{smi}'")
+
+    # 51. The training CLI on the slide, then --resume.
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, str(root / "scripts" / "torch_train_flow.py"),
+           "--slides", big, "--xmls", str(work / "slide16k.xml"),
+           "--image-size", "64", "--batch", "16", "--steps", "6",
+           "--save-every", "3", "--device", dev.type,
+           "--save", str(work / "cli_ckpt")]
+    runs = []
+    for extra in ([], ["--resume"]):
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd + extra, capture_output=True, text=True,
+                           timeout=300, cwd=root)
+        runs.append(time.perf_counter() - t0)
+        assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+        out = r.stdout
+    assert "resumed at step 6" in out and "step 7: bpd" in out, out
+    assert ck.latest_step(str(work / "cli_ckpt")) == 12
+    log(51, f"scripts/torch_train_flow.py on the {SLIDE_SIDE:,}^2 slide with "
+            f"its tumor polygon, 64^2 tiles, batch 16: 6 steps with a "
+            f"checkpoint every 3 ({runs[0]:.1f} s), then --resume from step "
+            f"6 to 12 ({runs[1]:.1f} s); both exit 0")
 
 
 def main() -> int:
@@ -1989,7 +2286,9 @@ def run(dev) -> int:
     parent_phases()
 
     # ---- Whole-slide deployment (K3, K1, K2, K5 on slides) -------------
-    slide_launches = slide_phases(dev, smi)
+    # Phases 48-51 (the flow + GMM model and its trainer) run on the
+    # slide phases' work directory: phase 51 trains on its slide.
+    slide_launches = slide_phases(dev, smi, then=flow_phases)
     for k in kernels:
         route = {r[2]: name for name, r in SLIDE_ROUTES.items()}.get(k["name"])
         if route is not None:

@@ -5,26 +5,34 @@ The counterparts of the JAX package's fitted state: ``ExtractiveParams``
 ``ReinhardParams`` (``normalization/reinhard.py:24-28``,
 ``normalizer.py:64-68``), and the stain augmenter's ``StainAugmentParams``
 and ``FusedStainAugmentState`` (``augmentation/functional.py:149-196``),
-and the slide-level estimates ``SlideStainParams`` and
-``SlideReinhardParams`` (``normalization/slide.py:62-74``). Given the JAX fit as numpy arrays, build the port's, so both packages can
-transform or pop from the same state.
+the slide-level estimates ``SlideStainParams`` and
+``SlideReinhardParams`` (``normalization/slide.py:62-74``), and the flow
+trainer's ``FlowState`` (``models/train_flow.py:85-91``). Given the JAX
+state as numpy arrays, build the port's, so both packages can transform,
+pop or train from the same state.
 """
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
+from stainlib_tpu_torch.api import _device
 from stainlib_tpu_torch.augmentation.functional import (
     FusedStainAugmentState,
     StainAugmentParams,
 )
+from stainlib_tpu_torch.models.train_flow import (
+    AdamState, FlowState, MultiStepsState)
 from stainlib_tpu_torch.normalization.extractive import ExtractiveParams
 from stainlib_tpu_torch.normalization.reinhard import ReinhardParams
 from stainlib_tpu_torch.normalization.slide import (
     SlideReinhardParams,
     SlideStainParams,
 )
+from stainlib_tpu_torch.utils.ema import EmaState
 
 
 def _to(x, device):
@@ -79,3 +87,83 @@ def slide_reinhard_params_from_jax(p, device) -> SlideReinhardParams:
         stats=reinhard_params_from_jax(np.asarray(p.stats.means),
                                        np.asarray(p.stats.stds), device),
         brightness_divisor=float(p.brightness_divisor))
+
+
+# flax's names -> the port's module paths: ``scales_1_0/g/conv2/kernel`` ->
+# ``scales.1.0.g.convs.2.weight``, ``Conv_1/kernel`` -> ``convs.1.weight``.
+_NAMES = ((re.compile(r"(scales|norms)_(\d+)_(\d+)"), r"\1.\2.\3"),
+          (re.compile(r"Conv_(\d+)"), r"convs.\1"),
+          (re.compile(r"\bconv(\d+)"), r"convs.\1"),
+          (re.compile(r"\bkernel$"), "weight"))
+
+
+def _flat_from_jax(tree, device, prefix="") -> dict:
+    """A nested dict of JAX arrays -> {port name: float32 tensor}: kernels
+    HWIO -> OIHW, spectral vectors NHWC -> NCHW, keys in sorted order (the
+    order ``init_flow_state`` gives)."""
+    out = {}
+    for key, val in tree.items():
+        path = f"{prefix}/{key}" if prefix else key
+        if isinstance(val, dict):
+            out.update(_flat_from_jax(val, device, path))
+            continue
+        a = np.array(val, np.float32)
+        if key == "kernel":
+            a = a.transpose(3, 2, 0, 1)
+        elif key == "u":
+            a = a.transpose(0, 3, 1, 2)
+        for pattern, repl in _NAMES:
+            path = pattern.sub(repl, path)
+        out[path.replace("/", ".")] = torch.tensor(a, device=device)
+    return dict(sorted(out.items()))
+
+
+def _params_from_jax(tree, device) -> dict:
+    return {part: _flat_from_jax(tree[part], device)
+            for part in ("flow", "gmm")}
+
+
+def _find(tree, attr: str):
+    """The first node of a JAX optimizer state (tuples of NamedTuples) that
+    has ``attr``."""
+    if hasattr(tree, attr):
+        return tree
+    if isinstance(tree, (tuple, list)):
+        for t in tree:
+            found = _find(t, attr)
+            if found is not None:
+                return found
+    return None
+
+
+def _opt_state_from_jax(opt_state, device):
+    multi = _find(opt_state, "mini_step")
+    adam = _find(opt_state, "nu")
+    inner = AdamState(count=int(adam.count),
+                      mu=_params_from_jax(adam.mu, device),
+                      nu=_params_from_jax(adam.nu, device))
+    if multi is None:
+        return inner
+    return MultiStepsState(mini_step=int(multi.mini_step),
+                           gradient_step=int(multi.gradient_step),
+                           inner_opt_state=inner,
+                           acc_grads=_params_from_jax(multi.acc_grads, device))
+
+
+def flow_state_from_jax(params, spectral, opt_state=None, ema=None,
+                        step: int = 0, device="cuda") -> FlowState:
+    """A JAX ``FlowState``'s ``params``, ``spectral``, ``opt_state`` (optax's
+    chain, or its ``MultiSteps``) and ``ema``, as numpy pytrees -> the
+    port's ``FlowState`` on ``device``. Fields not given (and the
+    generator's state, which has no JAX counterpart) are None."""
+    dev = _device(device)
+    return FlowState(
+        params=_params_from_jax(params, dev),
+        spectral=_flat_from_jax(spectral, dev),
+        opt_state=None if opt_state is None else _opt_state_from_jax(
+            opt_state, dev),
+        ema=None if ema is None else EmaState(
+            decay=float(ema.decay), params=_params_from_jax(ema.params, dev)),
+        step=int(step),
+        rng=None,
+    )

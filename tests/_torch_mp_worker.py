@@ -244,8 +244,48 @@ def task_wsi(inp, out):
                eval=np.concatenate(list(sampler.eval_tiles(0))))
 
 
+def task_flow(inp, out):
+    """One data-parallel flow train step on a 2-rank 'data' mesh: this
+    rank's rows of the batch, the given probes (every rank draws the same,
+    as every shard of the JAX step splits the same key), the state from a
+    checkpoint in the work directory. Saves the averaged loss and
+    gradients, and the state after ``make_train_step(mesh=...)``."""
+    import torch
+
+    from stainlib_tpu_torch.models.train_flow import (
+        FlowConfig, init_flow_state, loss_and_grads, make_train_step)
+    from stainlib_tpu_torch.parallel.collectives import pmean_grads
+    from stainlib_tpu_torch.parallel.mesh import make_mesh, shard_rows
+    from stainlib_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    cfg = FlowConfig(**{k[4:]: inp[k].item() if inp[k].ndim == 0
+                        else tuple(inp[k].tolist())
+                        for k in inp if k.startswith("cfg_")})
+    mesh = make_mesh(device="cpu")
+    flow, gmm, template, tx = init_flow_state(cfg, 0, device="cpu")
+    state = restore_checkpoint(str(inp["ckpt"]), template)
+    hsd = torch.from_numpy(inp["hsd"][shard_rows(mesh, "data",
+                                                 inp["hsd"].shape)])
+    probes = [torch.from_numpy(inp[f"probe_{i}"])
+              for i in range(int(inp["n_probes"]))]
+    loss, grads = loss_and_grads(flow, gmm, cfg, state.params,
+                                 state.spectral, hsd, probes)
+    grads = pmean_grads(grads, mesh)
+    out["loss"] = pmean_grads(loss, mesh).numpy()
+    new, step_loss = make_train_step(flow, gmm, cfg, tx, mesh=mesh)(
+        state, hsd, probes)
+    out["step_loss"] = step_loss.numpy()
+    for part, tree in (("grad", grads), ("param", new.params)):
+        for model in tree:
+            for name, t in tree[model].items():
+                out[f"{part}:{model}:{name}"] = t.numpy()
+    for name, t in new.spectral.items():
+        out[f"spectral:{name}"] = t.numpy()
+    out["step"] = np.array(new.step)
+
+
 TASKS = dict(mesh=task_mesh, parallel=task_parallel, prefetch=task_prefetch,
-             slide=task_slide, wsi=task_wsi)
+             slide=task_slide, wsi=task_wsi, flow=task_flow)
 
 
 def main(task: str, rank: int, world: int, workdir: str) -> None:
