@@ -63,7 +63,19 @@ the card, on uint8 H&E images (random synthetic images from a seed):
   step 6's loss bit for bit, and the inverse on two tiles;
   ``bench.py --config flow``'s shape (32x32, batch 64) in imgs/s; and
   ``scripts/torch_train_flow.py`` on the 16,384^2 slide with its polygon,
-  6 steps, then ``--resume``.
+  6 steps, then ``--resume``;
+* the colour model's deployment and evaluation (phases 52-56; no kernel
+  of K1-K10 either: gamma from the flow's forward with the logdet
+  skipped): ``validate`` with each of the six transfers for the small
+  flow on the card against the CPU; at ``reference_capacity()`` from the
+  10-step checkpoint, its deploy pass and recolour step by CUDA events,
+  peak memory, the gamma-only route against ``encode``'s gamma and a
+  profiler trace of the diag deploy pass; ``flow_normalize_slide`` on the
+  4096^2 slide with four transfers, class matching off and on, timed by
+  parts, the diag route twice (the same bytes) and its stream traced;
+  ``sample_flow`` at capacity, ``train_toy`` on the card and the toy flow
+  against the CPU; ``scripts/torch_train_flow.py --evaluate`` and
+  ``scripts/torch_bench_flow_deploy.py``.
 
 It builds the hand-written CUDA kernels from the sources in the checkout,
 counts each kernel's launches over its path, holds every kernel against
@@ -1574,6 +1586,9 @@ def flow_phases(dev, smi, work: Path, big: str) -> None:
     assert restored.step == 5 and _tree_equal(restored, states[4])
     r6, loss6 = step(restored, batches[5])
     assert torch.equal(loss6, losses[5]), (float(loss6), bpd[5])
+    # The 10-step state, which phases 53-56 deploy.
+    ck.save_checkpoint(str(work / "capacity_ckpt"), states[-1],
+                       states[-1].step)
 
     # The inverse on 2 tiles: z = flow(x), x' = flow.inverse(z).
     flow.load_state_dict({**st.params["flow"], **st.spectral})
@@ -1628,6 +1643,400 @@ def flow_phases(dev, smi, work: Path, big: str) -> None:
             f"its tumor polygon, 64^2 tiles, batch 16: 6 steps with a "
             f"checkpoint every 3 ({runs[0]:.1f} s), then --resume from step "
             f"6 to 12 ({runs[1]:.1f} s); both exit 0")
+
+    # 52-56. Deployment and evaluation of the trained model.
+    deploy_phases(dev, smi, work, st_c)
+
+
+# ---- Flow deployment and evaluation (phases 52-56) --------------------------
+# No kernel of K1-K10 runs here either: gamma comes from the flow's forward
+# (cuDNN float32 convolutions) with the logdet skipped; the transfers and
+# the statistics are plain PyTorch, as the JAX package's are plain jnp.
+DEPLOY_TOL = dict(rtol=1e-5, atol=1e-6)  # template statistics, card vs CPU
+TOY_ITERS = 200
+
+
+def _events():
+    return [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+
+def _u8_diff(a, b) -> np.ndarray:
+    return np.abs(np.asarray(a).astype(np.int16)
+                  - np.asarray(b).astype(np.int16))
+
+
+def _timed(parts: dict, name: str, fn):
+    """``fn`` timed by CUDA events into ``parts[name]`` (ms; a list, one
+    entry per call)."""
+    def run(*a, **k):
+        e = _events()
+        torch.cuda.synchronize()
+        e[0].record()
+        out = fn(*a, **k)
+        e[1].record()
+        torch.cuda.synchronize()
+        parts.setdefault(name, []).append(e[0].elapsed_time(e[1]))
+        return out
+    return run
+
+
+@contextlib.contextmanager
+def _patched(module, **fns):
+    real = {n: getattr(module, n) for n in fns}
+    for n, f in fns.items():
+        setattr(module, n, f)
+    try:
+        yield real
+    finally:
+        for n, f in real.items():
+            setattr(module, n, f)
+
+
+def deploy_phases(dev, smi, work: Path, small) -> None:
+    """Phases 52-56: the flow colour model's deployment and evaluation
+    (``models/validate_flow.py``, ``models/color_eval.py``,
+    ``normalization/slide.flow_normalize_slide``, ``models/sampling.py``,
+    ``models/toy.py`` and their CLIs). 52, ``validate`` with the six
+    transfers for phase 48's small flow (``small``, its CPU state) on the
+    card against the CPU; 53, ``validate`` with the six transfers at
+    ``reference_capacity()`` from phase 49's 10-step checkpoint, timed,
+    traced; 54, ``flow_normalize_slide`` on phase 44's 4096^2 slide, four
+    transfers with class matching off and on, the diag route twice; 55,
+    ``sample_flow`` at capacity and the toy flow; 56, the CLIs."""
+    from torch.func import functional_call
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._pytree import tree_map
+
+    from stainlib_tpu_torch.data import native, synthetic
+    from stainlib_tpu_torch.models import train_flow as tf
+    from stainlib_tpu_torch.models import validate_flow as vf
+    from stainlib_tpu_torch.models.sampling import (
+        flow_inverse, sample_flow, save_sample_grid)
+    from stainlib_tpu_torch.models.toy import (
+        ToyConfig, ToyResFlow, sample_toy, train_toy)
+    from stainlib_tpu_torch.normalization import slide as sl
+    from stainlib_tpu_torch.ops.colorspace import rgb_to_hsd
+    from stainlib_tpu_torch.utils import checkpoint as ck
+
+    t_phases = time.perf_counter()
+
+    def quiet(*_):
+        pass
+
+    def n_params(params):
+        return sum(p.numel() for part in params.values()
+                   for p in part.values())
+
+    # 52. Phase 48's small flow, the same weights on the card and the CPU:
+    # validate with each transfer, class matching on, 2 template and 2
+    # test batches of 8 tiles of 16^2 from four centers. Tolerances: the
+    # template statistics rtol 1e-5, atol 1e-6; the uint8 outputs within 1
+    # on all but 1e-3 of the bytes, at most 2; NMI within 1e-5 on the
+    # images whose bytes are equal.
+    cfg = tf.FlowConfig(**FLOW_SMALL)
+    rgb, _ = synthetic.multi_center_batches(range(4), 8, 8, 16, 16,
+                                            seed=SEED + 52)
+    hsd = [rgb_to_hsd(torch.from_numpy(b)) for b in rgb]
+    models = {"cpu": (*tf.build_models(cfg, "cpu"), small.params,
+                      small.spectral),
+              "card": (*tf.build_models(cfg, dev),
+                       tree_map(lambda t: t.to(dev), small.params),
+                       tree_map(lambda t: t.to(dev), small.spectral))}
+    for transfer in vf.TRANSFERS:
+        res = {where: vf.validate(f, g, cfg, p, sp, hsd[:2], hsd[2:],
+                                  log=quiet, transfer=transfer,
+                                  class_match=True)
+               for where, (f, g, p, sp) in models.items()}
+        a, b = res["card"], res["cpu"]
+        stat_err = {}
+        for name in ("mu", "sigma", "cov", "quantiles", "usage"):
+            x, y = getattr(a["stats"], name), getattr(b["stats"], name)
+            if y is None:
+                continue
+            stat_err[name] = float(np.abs(x - y).max())
+            assert np.allclose(x, y, **DEPLOY_TOL), (transfer, name)
+        d = np.concatenate([_u8_diff(x, y).reshape(len(x), -1)
+                            for x, y in zip(a["outputs"], b["outputs"])])
+        same = d.max(1) == 0
+        nmi_err = np.abs(np.asarray(a["nmi"]) - np.asarray(b["nmi"]))
+        log(52, f"validate(transfer={transfer!r}, class_match=True), small "
+                f"flow, card against CPU: template statistics max |diff| "
+                + ", ".join(f"{k} {v:.2e}" for k, v in stat_err.items())
+                + f" (rtol 1e-5, atol 1e-6); uint8 max |diff| {d.max()}, "
+                f"share > 1 {(d > 1).mean():.2e}; {same.sum()} of "
+                f"{len(same)} images equal byte for byte, their NMI max "
+                f"|diff| {nmi_err[same].max() if same.any() else 0:.2e}; "
+                f"NMI card {np.round(a['nmi'], 5).tolist()}; card '{smi}'")
+        assert d.max() <= 2 and (d > 1).mean() <= 1e-3, (transfer, d.max())
+        assert (nmi_err[same] <= 1e-5).all(), (transfer, nmi_err)
+
+    # 53. reference_capacity() from phase 49's 10-step checkpoint (EMA
+    # weights): validate with each transfer over 4 template batches of
+    # center 0 and 4 test batches from four centers, 8 tiles of 256^2.
+    cfg = tf.reference_capacity()
+    S, B8 = cfg.image_size, FLOW_BATCH
+    tmpl_rgb = synthetic.center_tiles(0, 4 * B8, S, S, seed=SEED + 53)
+    test_rgb, _ = synthetic.multi_center_batches(range(4), B8, B8, S, S,
+                                                 seed=SEED + 153)
+    tmpl = [rgb_to_hsd(torch.from_numpy(tmpl_rgb[i * B8:(i + 1) * B8])
+                       .to(dev)) for i in range(4)]
+    test = [rgb_to_hsd(torch.from_numpy(b).to(dev)) for b in test_rgb]
+    flow, gmm, template, _ = tf.init_flow_state(cfg, SEED + 2, tmpl[0], dev)
+    state = ck.restore_checkpoint(str(work / "capacity_ckpt"), template)
+    params, spectral = state.ema.params, state.spectral
+    assert state.step == FLOW_STEPS, state.step
+    assert n_params(params) == FLOW_CAPACITY_PARAMS, n_params(params)
+    g_only = vf.encode_gamma(flow, gmm, params, spectral, test[0])
+    _, _, g_enc = tf.encode(flow, gmm, params, spectral, cfg, test[0],
+                            generator=torch.Generator(dev).manual_seed(SEED))
+    assert torch.equal(g_only, g_enc.permute(0, 2, 3, 1)), (
+        "the gamma-only route differs from encode's gamma")
+    log(53, f"reference_capacity() restored at step {state.step} (EMA "
+            f"weights, {n_params(params):,} parameters): the gamma-only "
+            f"route (logdet skipped) equals encode's gamma bit for bit on "
+            f"a batch of {B8} tiles of {S}^2")
+    del g_enc
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_test = len(test) * B8
+    for transfer in vf.TRANSFERS:
+        parts = {}
+        with _patched(vf, deploy=_timed(parts, "deploy", vf.deploy),
+                      accumulate_template_sums=_timed(
+                          parts, "template", vf.accumulate_template_sums)):
+            res = vf.validate(flow, gmm, cfg, params, spectral, tmpl, test,
+                              log=quiet, transfer=transfer)
+        assert all(o.dtype == np.uint8 and o.shape == (B8, S, S, 3)
+                   for o in res["outputs"])
+        assert np.isfinite(res["nmi"]).all()
+        # The recolour step alone (gamma, the batch's statistics, the
+        # transfer), a chain over the 4 test batches, no host work.
+        st = res["stats"]
+        dev_stats = [None if t is None else torch.from_numpy(t).to(dev)
+                     for t in (st.mu, st.sigma, st.cov, st.quantiles)]
+        q_space = "rgb" if transfer.startswith("rgb-") else "hsd"
+        composite = transfer.endswith("full-quantile")
+        e = _events()
+        e[0].record()
+        for h in test:
+            g = vf.encode_gamma(flow, gmm, params, spectral, h)
+            vf.transfer_batch(h, g, dev_stats[0], dev_stats[1], None,
+                              dev_stats[2], dev_stats[3], q_space, composite)
+        e[1].record()
+        torch.cuda.synchronize()
+        step_ms = e[0].elapsed_time(e[1]) / len(test)
+        log(53, f"validate(transfer={transfer!r}) at capacity: deploy pass "
+                f"{n_test * 1e3 / parts['deploy'][0]:.1f} imgs/s "
+                f"({parts['deploy'][0]:.1f} ms for {n_test} tiles, the host's "
+                f"per-class NMI included); template pass "
+                f"{parts['template'][0]:.1f} ms for {4 * B8} tiles; the "
+                f"recolour step alone {step_ms:.1f} ms per batch of {B8} = "
+                f"{B8 * 1e3 / step_ms:.1f} imgs/s (CUDA events); NMI sd "
+                f"{res['nmi_sd']:.4f} cv {res['nmi_cv']:.4f}; per-class NMI "
+                f"sd/cv raw {res['class_nmi_sd_raw']:.4f}/"
+                f"{res['class_nmi_cv_raw']:.4f} -> normalized "
+                f"{res['class_nmi_sd']:.4f}/{res['class_nmi_cv']:.4f} "
+                f"(a 10-step checkpoint: plumbing, not colour quality); "
+                f"card '{smi}'")
+    peak = torch.cuda.max_memory_allocated()
+    log(53, f"peak allocated over the six validate runs "
+            f"{peak / 2**30:.2f} GiB")
+
+    # The diag deploy pass traced: the idle share, the five longest device
+    # activities.
+    stats = vf.accumulate_template_stats(flow, gmm, cfg, params, spectral,
+                                         tmpl)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        vf.deploy(flow, gmm, cfg, params, spectral, test, stats.mu,
+                  stats.sigma, log=quiet)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    acts = trace_activities(prof)
+    busy = sum(ms_ for _, ms_ in acts.values())
+    top = sorted(acts.items(), key=lambda kv: -kv[1][1])[:5]
+    log(53, f"diag deploy pass traced ({n_test} tiles): {wall_ms:.1f} ms on "
+            f"the host clock, device busy {busy:.1f} ms, idle "
+            f"{1 - busy / wall_ms:.2%}; top device activities: " + "; ".join(
+                f"{k[:70]} x{n} {t:.1f} ms ({t / max(busy, 1e-9):.1%})"
+                for k, (n, t) in top))
+
+    # 54. flow_normalize_slide on phase 44's 4096^2 slide (256 tiles) at
+    # capacity, batch 8; four transfers, class matching off then on; the
+    # diag route again, traced. The host has no libtiff: the writer is
+    # not run and level 0 is read from the canvas.
+    tiff = native.tiff_native_available()
+    mid = str(work / "mid.wsiraw")
+    n_mid = (SLIDE_MID // S) ** 2
+    runs = [(t, cm) for t in sl.FLOW_TRANSFERS for cm in (False, True)]
+    runs.append(("diag", False))
+    canvases = []
+    real_stream = sl._stream_canvas
+    for i, (transfer, cm) in enumerate(runs):
+        parts, seen = {}, {}
+        traced = i == len(runs) - 1
+
+        def stream(*a, **k):
+            if traced:
+                with profile(activities=[ProfilerActivity.CUDA]) as p:
+                    out = _timed(parts, "stream", real_stream)(*a, **k)
+                seen["prof"] = p
+            else:
+                out = _timed(parts, "stream", real_stream)(*a, **k)
+            seen["canvas"] = out[0]
+            return out
+
+        write = (_timed(parts, "write", sl.write_tiff_pyramid) if tiff
+                 else (lambda *a, **k: None))
+        with _patched(vf, accumulate_template_stats=_timed(
+                parts, "stats", vf.accumulate_template_stats)), \
+                _patched(sl, _stream_canvas=stream,
+                         build_pyramid=_timed(parts, "pyramid",
+                                              sl.build_pyramid),
+                         write_tiff_pyramid=write):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            info = sl.flow_normalize_slide(
+                mid, str(work / f"flow_{transfer}.tif"),
+                str(work / "capacity_ckpt"), batch=B8, cfg=cfg,
+                class_match=cm, transfer=transfer, device=dev)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+        out = seen["canvas"]
+        assert info["tiles"] == n_mid and out.shape == (SLIDE_MID,
+                                                        SLIDE_MID, 3)
+        assert out.dtype == np.uint8 and info["params"] == \
+            FLOW_CAPACITY_PARAMS and info["step"] == FLOW_STEPS
+        canvases.append(out)
+        split = (f"template stats {parts['stats'][0]:.0f} ms, source stats "
+                 f"{parts['stats'][1]:.0f} ms, stream "
+                 f"{parts['stream'][0]:.0f} ms, pyramid "
+                 f"{parts['pyramid'][0]:.0f} ms, writer "
+                 + (f"{parts['write'][0]:.0f} ms" if tiff
+                    else "not run (no libtiff)"))
+        msg = (f"flow_normalize_slide {SLIDE_MID}^2 ({n_mid} tiles), "
+               f"transfer={transfer!r}, class_match={cm}, batch {B8}: "
+               f"{n_mid / total:.2f} tiles/s end to end ({total:.2f} s: "
+               f"{split}; host clock, CUDA events per part)")
+        if traced:
+            acts = trace_activities(seen["prof"])
+            busy = sum(ms_ for _, ms_ in acts.values())
+            stream_ms = parts["stream"][0]
+            same = np.array_equal(out, canvases[0])
+            assert same, "two diag runs differ"
+            msg += (f"; a second diag run: the same bytes; its stream traced:"
+                    f" device busy {busy:.1f} ms of {stream_ms:.1f} ms, idle "
+                    f"{1 - busy / stream_ms:.2%}")
+        log(54, msg + f"; card '{smi}'")
+    q = SLIDE_MID // 4
+    lv0 = native.open_slide(mid)
+    src = lv0.read_region(0, q, q, q, q)
+    lv0.close()
+    moved = np.abs(canvases[0][q:2 * q, q:2 * q].astype(np.int16) - src)
+    assert moved.mean() > 0.5, "the recolouring did not move the tissue"
+    del canvases
+
+    # 55. sample_flow at capacity: n=4 from the GMM mixture, then the round
+    # trip inverse(forward(x)) of the samples; the toy flow trained on the
+    # card, and its forward and logdet on the card against the CPU.
+    variables = {**params["flow"], **spectral}
+    gp = params["gmm"]
+    x = sample_flow(flow, variables, 4,
+                    torch.Generator(dev).manual_seed(SEED + 55),
+                    gmm_params={"mu": gp["mu"],
+                                "sigma": torch.exp(gp["log_sigma"])})
+    assert x.shape == (4, 1, S, S) and torch.isfinite(x).all()
+    def forward(v):
+        with torch.no_grad():
+            return functional_call(flow, variables, (v,),
+                                   {"skip_logdet": True})[0]
+
+    # The samples' latents z = forward(x); x' = inverse(z), z' = forward(x').
+    # x' is held as scripts/sample_flow_capacity.py holds it; z' - z is
+    # reported (the logit layer scales an error in x by up to 1e4 near the
+    # clip at 1e-4).
+    z2 = forward(torch.clamp(x, 1e-4, 1 - 1e-4))
+    x2 = flow_inverse(flow, variables, z2)
+    err = float((torch.clamp(x2, 0, 1) - x).abs().max())
+    lat_err = float((forward(x2) - z2).abs().max())
+    assert err < 5e-2 and np.isfinite(lat_err), (err, lat_err)
+    lines = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toy, _, nll = train_toy(ToyConfig(n_iters=TOY_ITERS), seed=SEED % 1000,
+                            log=lines.append, device=dev)
+    toy_s = time.perf_counter() - t0
+    first = float(lines[0].split("nll")[1])
+    assert np.isfinite(nll) and nll < first, (first, nll)
+    cpu_toy = ToyResFlow(device="cpu")
+    cpu_toy.load_state_dict({k: v.cpu() for k, v in toy.state_dict().items()})
+    pts = torch.from_numpy(sample_toy("8gaussians", 512, seed=SEED % 1000))
+    (zc, lc), (zg, lg) = cpu_toy(pts), toy(pts.to(dev))
+    z_err = float((zg.detach().cpu() - zc.detach()).abs().max())
+    l_err = float((lg.detach().cpu() - lc.detach()).abs().max())
+    assert z_err <= 1e-4 and l_err <= 1e-4, (z_err, l_err)
+    try:
+        import PIL  # noqa: F401  (save_visuals and save_sample_grid need it)
+        pil = True
+    except ImportError:
+        pil = False
+    if pil:
+        grid = save_sample_grid(str(work / "samples.png"), x, cols=4)
+        vf.save_visuals(str(work / "visuals"), state.step, tmpl[0], test[0],
+                        res["outputs"][0],
+                        vf.encode_gamma(flow, gmm, params, spectral,
+                                        test[0]))
+        assert Path(grid).exists() and len(list(
+            (work / "visuals").glob("im_*.png"))) == 4
+        log(55, "PIL is on this host: save_sample_grid and save_visuals "
+                "wrote their PNGs")
+    else:
+        log(55, "PIL is not on this host: save_sample_grid and "
+                "save_visuals are not run here (the CPU tests hold them)")
+    log(55, f"sample_flow at capacity, n=4 from the GMM mixture: "
+            f"{tuple(x.shape)} in [{float(x.min()):.3f}, "
+            f"{float(x.max()):.3f}], inverse(forward(x)) max |err| "
+            f"{err:.3e}, forward(inverse(z)) max |err| {lat_err:.3e}; "
+            f"train_toy 8gaussians {TOY_ITERS} iterations on the "
+            f"card ({toy_s:.1f} s): nll {first:.4f} -> {nll:.4f}; the "
+            f"trained ToyResFlow on 512 points, card against CPU: z max "
+            f"|diff| {z_err:.2e}, logdet {l_err:.2e} (atol 1e-4)")
+
+    # 56. The CLIs as subprocesses: --evaluate on phase 51's checkpoint,
+    # and the deploy-rate script on phase 49's.
+    root = Path(__file__).resolve().parent
+    ev = [sys.executable, str(root / "scripts" / "torch_train_flow.py"),
+          "--evaluate", "--image-size", "64", "--batch", "16",
+          "--device", dev.type, "--save", str(work / "cli_ckpt")]
+    bench = [sys.executable,
+             str(root / "scripts" / "torch_bench_flow_deploy.py"),
+             "--ckpt", str(work / "capacity_ckpt"), "--iters", "3",
+             "--transfers", ",".join(vf.TRANSFERS), "--device", dev.type,
+             "--out", str(work / "bench_flow_deploy.json")]
+    outs = []
+    for cmd in (ev, bench):
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                           cwd=root)
+        assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+        outs.append((r.stdout, time.perf_counter() - t0))
+    assert "resumed at step 12" in outs[0][0] and "NMI sd=" in outs[0][0]
+    rates = json.loads(outs[1][0].strip().splitlines()[-1])
+    assert set(rates) == set(vf.TRANSFERS)
+    nmi_line = [ln for ln in outs[0][0].splitlines() if "NMI sd=" in ln][-1]
+    log(56, f"scripts/torch_train_flow.py --evaluate on phase 51's "
+            f"checkpoint ({outs[0][1]:.1f} s): exit 0, "
+            f"{nmi_line.split('INFO ')[-1]}; "
+            f"scripts/torch_bench_flow_deploy.py --iters 3 on phase 49's "
+            f"({outs[1][1]:.1f} s): exit 0, imgs/s per transfer {rates} "
+            f"(256^2, batch 8, CUDA events); card '{smi}'")
+    log(56, "scripts/torch_flow_normalize_wsi.py is not run here"
+            + (": it writes a TIFF, and this host has no libtiff (phase 41)"
+               if not tiff else "")
+            + "; phase 54 drives flow_normalize_slide itself, and the CPU "
+              "tests run the CLI end to end")
+    log(56, f"phases 52-56 took {time.perf_counter() - t_phases:.1f} s")
 
 
 def main() -> int:

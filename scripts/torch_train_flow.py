@@ -15,7 +15,10 @@ the card unless ``--device cpu`` is given.
       --batch 4 --n-scales 1 --blocks 1 --hidden 8
 
 ``--capacity`` trains ``reference_capacity()`` (the published 256^2 model;
-the model flags are then ignored). ``--resume`` continues from the newest
+the model flags are then ignored). ``--evaluate`` trains nothing: it
+restores the newest checkpoint under ``--save`` and runs ``validate``
+(template statistics from the first batch, deploy on the next; the NMI CSV
+goes to ``--save``). ``--resume`` continues from the newest
 checkpoint under ``--save``; ``--steps`` counts the steps of this run, and
 checkpoints are named by the global step. Under torchrun (or with
 ``--coordinator``, ``--num-processes``, ``--process-id``) the ranks form a
@@ -55,6 +58,9 @@ def parse_args(argv):
     p.add_argument("--save", default="flow_ckpt")
     p.add_argument("--save-every", type=int, default=500)
     p.add_argument("--resume", action="store_true")
+    p.add_argument("--evaluate", action="store_true",
+                   help="run validate() on --save's checkpoint instead of "
+                        "training")
     p.add_argument("--coordinator", default=None)
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
@@ -141,9 +147,18 @@ def main(argv=None):
         state = state._replace(**broadcast_from_zero(
             {"params": state.params, "spectral": state.spectral,
              "ema": state.ema._replace(params=state.params)}, mesh))
-    if args.resume:
+    if args.resume or args.evaluate:
         state = restore_checkpoint(args.save, state)
         log(f"resumed at step {state.step}")
+    if args.evaluate:
+        from stainlib_tpu_torch.models.validate_flow import validate
+
+        res = validate(flow, gmm, cfg, state.params, state.spectral,
+                       [first], [next_hsd()], out_dir=args.save, log=log)
+        log(f"NMI sd={res['nmi_sd']:.4f} cv={res['nmi_cv']:.4f}")
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        return res
     n_params = sum(p.numel() for part in state.params.values()
                    for p in part.values())
     log(f"device {dev}, world {world}, {n_params} parameters, "

@@ -6,8 +6,9 @@ The counterparts of the JAX package's fitted state: ``ExtractiveParams``
 ``normalizer.py:64-68``), and the stain augmenter's ``StainAugmentParams``
 and ``FusedStainAugmentState`` (``augmentation/functional.py:149-196``),
 the slide-level estimates ``SlideStainParams`` and
-``SlideReinhardParams`` (``normalization/slide.py:62-74``), and the flow
-trainer's ``FlowState`` (``models/train_flow.py:85-91``). Given the JAX
+``SlideReinhardParams`` (``normalization/slide.py:62-74``), the flow
+trainer's ``FlowState`` (``models/train_flow.py:85-91``) and the toy
+flow's variables (``models/toy.py``). Given the JAX
 state as numpy arrays, build the port's, so both packages can transform,
 pop or train from the same state.
 """
@@ -148,6 +149,28 @@ def _opt_state_from_jax(opt_state, device):
                            gradient_step=int(multi.gradient_step),
                            inner_opt_state=inner,
                            acc_grads=_params_from_jax(multi.acc_grads, device))
+
+
+def toy_state_from_jax(variables, device="cuda") -> dict:
+    """A JAX ``ToyResFlow``'s variables (``{"params": ..., "spectral":
+    ...}``, numpy leaves) -> a state dict for the port's ``ToyResFlow``:
+    ``blocks_0/d0/kernel`` -> ``blocks.0.d0.kernel``, the (in, out) kernel
+    layout kept."""
+    dev = _device(device)
+    out = {}
+
+    def walk(tree, prefix):
+        for key, val in tree.items():
+            path = f"{prefix}.{key}" if prefix else key
+            if isinstance(val, dict):
+                walk(val, path)
+            else:
+                name = re.sub(r"blocks_(\d+)", r"blocks.\1", path)
+                out[name] = _to(val, dev)
+
+    for part in ("params", "spectral"):
+        walk(variables.get(part, {}), "")
+    return out
 
 
 def flow_state_from_jax(params, spectral, opt_state=None, ema=None,

@@ -141,7 +141,9 @@ class ResidualFlow(nn.Module):
 
     forward: x -> (z, delta_logp) with delta_logp = -sum logdet (the sign
     convention of ``compute_loss``: ``logpx = logpz - delta_logp - ...``,
-    ``train_img_horo.py:466-501``). ``input_shape`` is (C, H, W).
+    ``train_img_horo.py:466-501``). ``input_shape`` is (C, H, W), kept as
+    an attribute (the JAX module's is (H, W, C)); the latent of an input
+    of that shape is :meth:`latent_shape`.
     """
 
     def __init__(self, n_scales: int = 2, blocks_per_scale: int = 4,
@@ -155,6 +157,7 @@ class ResidualFlow(nn.Module):
         self.n_scales = n_scales
         self.blocks_per_scale = blocks_per_scale
         self.squeeze_first = squeeze_first
+        self.input_shape = tuple(input_shape)
         self.init_layer = LogitTransform(alpha=logit_alpha)
         c, h, w = input_shape
         if squeeze_first:
@@ -175,6 +178,11 @@ class ResidualFlow(nn.Module):
                 c, h, w = c * 4, h // 2, w // 2
         self.scales = nn.ModuleList(scales)
         self.norms = nn.ModuleList(norms)
+
+    def latent_shape(self, n: int = 1) -> tuple:
+        """The latent's shape (n, C', H', W') for ``n`` inputs of
+        ``input_shape``: the last block's input, after every squeeze."""
+        return self.probe_shapes((n, *self.input_shape))[-1]
 
     def probe_shapes(self, x_shape) -> list:
         """The input shape of each block, in block order, for an input of

@@ -183,18 +183,18 @@ def clip_by_global_norm(grads, max_norm: float):
                     grads)
 
 
-def make_optimizer(cfg: FlowConfig) -> Optimizer:
-    """Adam + warmup + clip + accumulation (``train_img_horo.py:255-259,
-    387-414,577-594``), equal to the JAX package's optax chain."""
-    schedule = make_schedule(cfg)
-    b1, b2, eps = 0.9, 0.999, 1e-8  # optax.adam's defaults
+def adam(schedule: Callable[[int], float]) -> Optimizer:
+    """``optax.adam(schedule)`` with its defaults (b1 0.9, b2 0.999, eps
+    1e-8 outside the square root, bias-corrected), on pytrees of tensors:
+    ``update(grads, state) -> (updates, state)``, the learning rate read at
+    the count before the update."""
+    b1, b2, eps = 0.9, 0.999, 1e-8
 
-    def adam_init(params):
+    def init(params):
         return AdamState(0, tree_map(torch.zeros_like, params),
                          tree_map(torch.zeros_like, params))
 
-    def adam_update(grads, state: AdamState):
-        grads = clip_by_global_norm(grads, cfg.grad_clip)
+    def update(grads, state: AdamState, params=None):
         mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state.mu)
         nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads,
                       state.nu)
@@ -206,6 +206,18 @@ def make_optimizer(cfg: FlowConfig) -> Optimizer:
             lambda m, v: step_size * ((m / bc1) / (torch.sqrt(v / bc2) + eps)),
             mu, nu)
         return updates, AdamState(count, mu, nu)
+
+    return Optimizer(init, update)
+
+
+def make_optimizer(cfg: FlowConfig) -> Optimizer:
+    """Adam + warmup + clip + accumulation (``train_img_horo.py:255-259,
+    387-414,577-594``), equal to the JAX package's optax chain."""
+    inner = adam(make_schedule(cfg))
+    adam_init = inner.init
+
+    def adam_update(grads, state: AdamState):
+        return inner.update(clip_by_global_norm(grads, cfg.grad_clip), state)
 
     if cfg.update_freq <= 1:
         def update(grads, state, params=None):

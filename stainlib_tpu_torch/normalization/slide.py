@@ -1,6 +1,6 @@
 """Whole-slide stain normalization: stream a WSI through the card, write a WSI.
 
-Port of the JAX package's ``normalization/slide.py:40-447``. The
+Port of the JAX package's ``normalization/slide.py``. The
 reference's deployment story is the ``tester`` loop: iterate every tile of
 a slide through OpenSlide/PyVips decode and a per-patch CPU transform
 (``dlmodels/color-information/data_utils.py:1``; per-patch normalization
@@ -22,6 +22,10 @@ Estimation modes:
 * ``estimation='tile'``: the reference's per-patch semantics (re-estimate
   per tile, ``normalizer.py:45-48``) through the per-tile kernels K1
   (Macenko), K2 (Vahadane) and K5 (Reinhard) at their default knobs.
+
+``flow_normalize_slide`` deploys the trained flow + GMM colour model the
+same way (``slide.py:450-628``): slide-level source statistics, then the
+per-class transfer of ``models.color_eval`` on every tile.
 
 Every public function takes a ``device``, ``"cuda"`` unless the caller asks
 for the CPU. The kernels run on a CUDA device for tiles the JAX package's
@@ -412,6 +416,159 @@ def normalize_slide(
             "method": method,
             "estimation": estimation,
             "fused": fused,
+        }
+    finally:
+        slide.close()
+
+
+FLOW_TRANSFERS = ("diag", "full", "quantile", "rgb-quantile")
+
+
+def flow_normalize_slide(
+    src_path: str,
+    out_path: str,
+    ckpt_dir: str,
+    template=None,
+    batch: int = 8,
+    level: int = 0,
+    n_src_tiles: int = 32,
+    seed: int = 0,
+    min_pyramid: int = 512,
+    compression: str = "jpeg",
+    quality: int = 90,
+    prefetch_depth: int = 3,
+    prefetch_workers: int = 2,
+    progress: Optional[Callable[[int, int], None]] = None,
+    cfg=None,
+    use_ema: bool = True,
+    class_match: bool = False,
+    transfer: str = "diag",
+    device="cuda",
+) -> dict:
+    """Whole-slide colour normalization with the trained residual flow +
+    GMM: the ``validate`` / deploy loop of ``train_img_horo.py:658-930``
+    (template statistics, then the per-class HSD transfer of ``:815``)
+    applied to every tile of a WSI, written back as a pyramidal TIFF.
+
+    ``ckpt_dir``: a ``utils/checkpoint.py`` directory of this package (a
+    ``.pt`` state; the JAX package's checkpoints are not read) holding the
+    training state of ``cfg`` (default ``reference_capacity()``, 502,855
+    parameters; ``scripts/torch_train_flow_capacity.py``). ``template``:
+    (N, S, S, 3) uint8 template tiles, a template slide to sample them
+    from, or None for the synthetic center 0 (``data.synthetic``). The EMA
+    weights deploy by default (the reference's ``--ema-val`` swap,
+    ``train_img_horo.py:668-669``).
+
+    The source statistics come once from ``n_src_tiles`` sampled tissue
+    tiles of the whole slide (not per batch, ``:803-812``), so every tile
+    goes through one slide-level map and the output has no batch seams;
+    ``class_match`` takes one slide-level permutation (usage-rank
+    matching). ``transfer``: 'diag' (the reference's affine), 'full'
+    (Monge maps), 'quantile' or 'rgb-quantile' (quantile matching in HSD
+    or float RGB); see ``models.color_eval``. ``device``: where the model
+    and the tiles run."""
+    from stainlib_tpu_torch.data.synthetic import center_tiles
+    from stainlib_tpu_torch.models import color_eval
+    from stainlib_tpu_torch.models.train_flow import (
+        init_flow_state, reference_capacity)
+    from stainlib_tpu_torch.models.validate_flow import (
+        accumulate_template_stats, encode_gamma)
+    from stainlib_tpu_torch.ops.colorspace import hsd_to_rgb, rgb_to_hsd
+    from stainlib_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    if transfer not in FLOW_TRANSFERS:
+        raise ValueError(f"transfer must be one of {FLOW_TRANSFERS}, "
+                         f"got {transfer!r}")
+    dev = _device(device)
+    if cfg is None:
+        cfg = reference_capacity()
+    tile = cfg.image_size
+
+    # Template tiles -> HSD batches.
+    if template is None:
+        template = center_tiles(0, max(batch * 4, 32), tile, tile,
+                                seed=seed + 100)
+    elif isinstance(template, (str, bytes)):
+        t_slide, _ = _open(template)
+        try:
+            template, _ = t_slide.sample_tiles(level, tile,
+                                               max(batch * 4, 32),
+                                               seed=seed + 100)
+        finally:
+            t_slide.close()
+    tmpl_hsd = rgb_to_hsd(torch.from_numpy(np.ascontiguousarray(
+        template)).to(dev))
+
+    flow, gmm, state, _ = init_flow_state(cfg, seed,
+                                          sample_hsd=tmpl_hsd[:batch],
+                                          device=dev)
+    state = restore_checkpoint(ckpt_dir, state)
+    params = state.ema.params if use_ema else state.params
+    spectral = state.spectral
+
+    full = transfer == "full"
+    quant = transfer in ("quantile", "rgb-quantile")
+    q_space = "rgb" if transfer == "rgb-quantile" else "hsd"
+
+    def stats(hsd):
+        return accumulate_template_stats(
+            flow, gmm, cfg, params, spectral,
+            [hsd[i:i + batch] for i in range(0, len(hsd), batch)],
+            return_cov=full, return_quantiles=quant, quantile_space=q_space)
+
+    t_stats = stats(tmpl_hsd)
+    slide, _ = _open(src_path)
+    try:
+        W, H = slide.level_size(level)
+        # Slide-level source statistics from sampled tissue tiles; the slots
+        # where rejection sampling failed (coords -1) are dropped, as in
+        # _sample_mosaic.
+        src_tiles, src_xy = slide.sample_tiles(level, tile, n_src_tiles,
+                                               seed=seed)
+        kept = src_tiles[src_xy[:, 0] >= 0]
+        if len(kept):
+            src_tiles = kept
+        s_stats = stats(rgb_to_hsd(torch.from_numpy(
+            np.ascontiguousarray(src_tiles)).to(dev)))
+        perm = (color_eval.match_classes_by_usage(s_stats.usage,
+                                                  t_stats.usage)
+                if class_match else None)
+
+        def recolor(batch_u8, _bi):
+            # The JAX package folds the batch index into a key per batch for
+            # the logdet's probes; gamma never reads them, and the
+            # gamma-only route draws none, so no per-batch generator.
+            hsd = rgb_to_hsd(batch_u8)
+            gamma = encode_gamma(flow, gmm, params, spectral, hsd)
+            if quant:
+                # rgb-quantile maps the float-RGB rendering the curves were
+                # accumulated over.
+                xq = hsd if q_space == "hsd" else hsd_to_rgb(hsd)
+                return color_eval.image_dist_transform_quantile(
+                    xq, gamma, s_stats.quantiles, t_stats.quantiles,
+                    perm=perm, space=q_space)
+            if full:
+                return color_eval.image_dist_transform_full(
+                    hsd, gamma, s_stats.mu, s_stats.cov, t_stats.mu,
+                    t_stats.cov, perm=perm)
+            return color_eval.image_dist_transform(
+                hsd, gamma, s_stats.mu, s_stats.sigma, t_stats.mu,
+                t_stats.sigma, perm=perm)
+
+        canvas, n_tiles = _stream_canvas(
+            slide, level, tile, batch, W, H, recolor, progress,
+            prefetch_depth, prefetch_workers, device=dev)
+
+        levels = build_pyramid(canvas, min_dim=min_pyramid)
+        write_tiff_pyramid(out_path, levels, tile=tile,
+                           compression=compression, quality=quality)
+        return {
+            "width": W, "height": H, "tiles": n_tiles,
+            "levels": len(levels), "method": "flow",
+            "params": int(sum(p.numel() for part in params.values()
+                              for p in part.values())),
+            "step": int(state.step),
+            "ema": use_ema,
         }
     finally:
         slide.close()

@@ -284,8 +284,42 @@ def task_flow(inp, out):
     out["step"] = np.array(new.step)
 
 
+def task_validate(inp, out):
+    """The flow's template pass sharded over a 2-rank 'data' mesh: the
+    sums of ``template_sums_sharded`` (covariance and quantile curves
+    included) and ``validate(mesh=...)``'s template statistics and NMI,
+    from a checkpoint in the work directory."""
+    import torch
+
+    from stainlib_tpu_torch.models.train_flow import (
+        FlowConfig, init_flow_state)
+    from stainlib_tpu_torch.models.validate_flow import (
+        template_sums_sharded, validate)
+    from stainlib_tpu_torch.parallel.mesh import make_mesh
+    from stainlib_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    cfg = FlowConfig(**{k[4:]: inp[k].item() if inp[k].ndim == 0
+                        else tuple(inp[k].tolist())
+                        for k in inp if k.startswith("cfg_")})
+    mesh = make_mesh(device="cpu")
+    flow, gmm, template, _ = init_flow_state(cfg, 0, device="cpu")
+    state = restore_checkpoint(str(inp["ckpt"]), template)
+    sums = template_sums_sharded(flow, gmm, cfg, state.params,
+                                 state.spectral, torch.from_numpy(inp["tmpl"]),
+                                 None, mesh, with_cov=True,
+                                 with_quantiles=True)
+    for name, t in zip(sums._fields, sums):
+        out[f"sums:{name}"] = t.numpy()
+    res = validate(flow, gmm, cfg, state.params, state.spectral,
+                   [inp["tmpl"]], [inp["test"]], log=lambda *_: None,
+                   transfer="full", mesh=mesh)
+    out["mu_tmpl"], out["sigma_tmpl"] = res["mu_tmpl"], res["sigma_tmpl"]
+    out["nmi"] = np.asarray(res["nmi"])
+
+
 TASKS = dict(mesh=task_mesh, parallel=task_parallel, prefetch=task_prefetch,
-             slide=task_slide, wsi=task_wsi, flow=task_flow)
+             slide=task_slide, wsi=task_wsi, flow=task_flow,
+             validate=task_validate)
 
 
 def main(task: str, rank: int, world: int, workdir: str) -> None:
