@@ -75,7 +75,20 @@ the card, on uint8 H&E images (random synthetic images from a seed):
   parts, the diag route twice (the same bytes) and its stream traced;
   ``sample_flow`` at capacity, ``train_toy`` on the card and the toy flow
   against the CPU; ``scripts/torch_train_flow.py --evaluate`` and
-  ``scripts/torch_bench_flow_deploy.py``.
+  ``scripts/torch_bench_flow_deploy.py``;
+* the segmenter and DANN families (phases 57-62; no kernel of K1-K10:
+  cuDNN and cuBLAS float32): phase 49's card checkpoint restored on the
+  CPU, saved there and restored on the card (the same leaves, gamma and
+  next loss bit for bit); the U-Net on the card against the CPU and
+  ``train_segmenter`` at the seg demo's widths (base 16, depth 3, 64x64,
+  batch 32) in ms per step with peak memory; ``DannCNN`` on the card and
+  the CPU against the CPU's float64 step, then its three-phase iteration
+  at batch 64; ``MobileNetDann`` (alpha 0.5, its trunk's 829,536
+  asserted) at 224x224, batch 64, in imgs/s with peak memory and a traced
+  iteration's idle share; the six segmentation and DANN CLIs as
+  subprocesses, the probe and ``--capacity-ckpt`` on the card's and the
+  CPU-saved checkpoint; ``sliding_window_scores`` with a card model; and
+  the whole run's seconds.
 
 It builds the hand-written CUDA kernels from the sources in the checkout,
 counts each kernel's launches over its path, holds every kernel against
@@ -1421,11 +1434,10 @@ def flow_phases(dev, smi, work: Path, big: str) -> None:
     from stainlib_tpu_torch.utils import checkpoint as ck
 
     def on(state, d):
-        """A FlowState on device ``d``, its generator seeded there."""
+        """A FlowState on device ``d``, its probes' seed ``SEED``."""
         moved = tree_map(lambda t: t.to(d) if isinstance(t, torch.Tensor)
                          else t, state._replace(rng=None))
-        return moved._replace(
-            rng=torch.Generator(device=d).manual_seed(SEED).get_state())
+        return moved._replace(rng=tf.rng_state(SEED))
 
     def d01(hsd):
         return torch.clamp(hsd[..., 2:3] / 4.0, 1e-4, 1 - 1e-4).permute(
@@ -1646,6 +1658,8 @@ def flow_phases(dev, smi, work: Path, big: str) -> None:
 
     # 52-56. Deployment and evaluation of the trained model.
     deploy_phases(dev, smi, work, st_c)
+    # 57-62. Cross-device checkpoints, the segmenter, DANN, their CLIs.
+    model_phases(dev, smi, work)
 
 
 # ---- Flow deployment and evaluation (phases 52-56) --------------------------
@@ -2039,6 +2053,454 @@ def deploy_phases(dev, smi, work: Path, small) -> None:
     log(56, f"phases 52-56 took {time.perf_counter() - t_phases:.1f} s")
 
 
+# ---- Phases 57-62: cross-device checkpoints, the segmenter and DANN ---------
+# No kernel of K1-K10 runs here: the U-Net, DannCNN and MobileNet are cuDNN
+# float32 convolutions and cuBLAS matmuls (TF32 off), as the JAX package's
+# are XLA's; the seg demo's Macenko, Vahadane and Reinhard conditions call
+# the functional paths, as the JAX script does.
+SEG_CFG = dict(base=16, depth=3)  # scripts/seg_transfer_demo.py's widths
+SEG_SIDE, SEG_BATCH, SEG_TILES = 64, 32, 192
+SEG_STEPS = (10, 60)  # two runs; ms/step from their difference
+DANN_BATCH, DANN_ITERS = 64, 30  # DannConfig's batch; 63^2 patches
+MOBILENET_SIDE, MOBILENET_BATCH, MOBILENET_ITERS = 224, 64, 10
+MOBILENET_TRUNK = 829_536  # keras MobileNet(alpha=0.5)'s count
+CAPACITY_CLI = ("--iters", 5)  # phase 61: 224^2, batch 64, 5 iterations
+
+
+def _has_pil() -> bool:
+    return importlib.util.find_spec("PIL") is not None
+
+
+def _peak_text(base: int) -> str:
+    """The peak allocation since the last reset, and its part above
+    ``base``, the bytes allocated then (earlier phases' tensors)."""
+    peak = torch.cuda.max_memory_allocated()
+    return (f"peak allocated {peak / 2**30:.3f} GiB, "
+            f"{(peak - base) / 2**30:.3f} GiB above the "
+            f"{base / 2**30:.3f} GiB allocated at its start")
+
+
+def _rel_leaf(got: dict, want: dict) -> float:
+    """Largest |got - want| over each leaf's largest |want|, on the CPU."""
+    worst = 0.0
+    for k, w in want.items():
+        w = w.detach().cpu().double()
+        g = got[k].detach().cpu().double()
+        worst = max(worst, float((g - w).abs().max())
+                    / max(float(w.abs().max()), 1e-30))
+    return worst
+
+
+def model_phases(dev, smi, work: Path) -> None:
+    """Phases 57-62: 57, phase 49's card checkpoint restored on the CPU,
+    saved there, restored on the card: the same state, the same gamma
+    bytes, the same next loss; 58, the U-Net (``models/segmentation.py``)
+    on the card against the CPU, then ``train_segmenter`` at the seg
+    demo's widths (base 16, depth 3, 64^2, batch 32), timed; 59,
+    ``DannCNN`` on the card against the CPU (each phase's loss, gradients
+    and statistics), then its three-phase iteration at batch 64, timed;
+    60, ``MobileNetDann`` (alpha 0.5, its trunk 829,536) at 224^2, batch
+    64, timed and traced; 61, the six CLIs as subprocesses at small step
+    counts, the probe and the seg demo's ``--capacity-ckpt`` on phase 49's
+    checkpoint and on the CPU-saved one; 62, ``sliding_window_scores`` and
+    ``mine_hard_negatives`` with phase 59's model on a 1024^2 field."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from stainlib_tpu_torch.data import generators, synthetic
+    from stainlib_tpu_torch.models import backbones as bb
+    from stainlib_tpu_torch.models import dann as dn
+    from stainlib_tpu_torch.models import segmentation as sg
+    from stainlib_tpu_torch.models import train_flow as tf
+    from stainlib_tpu_torch.models import validate_flow as vf
+    from stainlib_tpu_torch.ops.colorspace import rgb_to_hsd
+    from stainlib_tpu_torch.utils import checkpoint as ck
+
+    t_phases = time.perf_counter()
+    cpu = torch.device("cpu")
+
+    def on(tree, d):
+        return {k: v.to(d) for k, v in tree.items()}
+
+    # 57. Cross-device restores. Phase 49's 10-step state was saved on the
+    # card; restore it into a template made on the CPU, save it there, and
+    # restore that into a template made on the card.
+    cfg = tf.reference_capacity()
+    S = cfg.image_size
+    hsd = rgb_to_hsd(torch.from_numpy(synthetic.center_tiles(
+        0, FLOW_BATCH, S, S, seed=SEED + 57)).to(dev))
+    flow, gmm, card_tmpl, tx = tf.init_flow_state(cfg, SEED + 3, hsd[:2], dev)
+    cpu_tmpl = tf.init_flow_state(cfg, SEED + 4, hsd[:2].cpu(), cpu)[2]
+    t0 = time.perf_counter()
+    card = ck.restore_checkpoint(str(work / "capacity_ckpt"), card_tmpl)
+    on_cpu = ck.restore_checkpoint(str(work / "capacity_ckpt"), cpu_tmpl)
+    ck.save_checkpoint(str(work / "capacity_ckpt_cpu"), on_cpu, on_cpu.step)
+    back = ck.restore_checkpoint(str(work / "capacity_ckpt_cpu"), card_tmpl)
+    restore_s = time.perf_counter() - t0
+    from torch.utils._pytree import tree_leaves
+
+    assert all(x.device.type == "cpu" for x in tree_leaves(on_cpu)
+               if isinstance(x, torch.Tensor))
+    assert _tree_equal(back, card), "the CPU round trip changed the state"
+    assert card.step == back.step == FLOW_STEPS and card.rng.shape == (2,)
+    g_card = vf.encode_gamma(flow, gmm, card.ema.params, card.spectral, hsd)
+    g_back = vf.encode_gamma(flow, gmm, back.ema.params, back.spectral, hsd)
+    assert torch.equal(g_card, g_back)
+    step = tf.make_train_step(flow, gmm, cfg, tx)
+    (_, l_card), (_, l_back) = step(card, hsd), step(back, hsd)
+    assert torch.equal(l_card, l_back), (float(l_card), float(l_back))
+    log(57, f"phase 49's card checkpoint (step {card.step}, rng leaf "
+            f"{card.rng.tolist()}, int64 (2,) on every device) restored "
+            f"into a CPU template, saved from the CPU, restored into a card "
+            f"template ({restore_s:.2f} s for the three): every leaf equal "
+            f"to the card's own restore, gamma of {FLOW_BATCH} tiles of "
+            f"{S}^2 equal bit for bit, the next step's loss "
+            f"{float(l_back):.6f} equal bit for bit")
+    del flow, gmm, card_tmpl, cpu_tmpl, card, on_cpu, back, g_card, g_back
+
+    # 58. The U-Net at the seg demo's widths: the card against the CPU on
+    # the same weights (logits atol 1e-4, the loss rtol 1e-5, gradients
+    # 1e-4 of each leaf's largest value), then train_segmenter timed.
+    seg_tiles, seg_masks = synthetic.center_tiles_with_masks(
+        0, SEG_TILES, SEG_SIDE, SEG_SIDE, seed=SEED + 58)
+    m_cpu, p_cpu = sg.init_unet(3, seed=SEED, device=cpu, **SEG_CFG)
+    m_card = sg.UNet(3, device=dev, **SEG_CFG)
+    x8 = torch.from_numpy(seg_tiles[:8])
+    y8 = torch.from_numpy(seg_masks[:8])
+    with torch.no_grad():
+        lc = torch.func.functional_call(m_cpu, p_cpu, (sg._unit(x8),))
+        lg = torch.func.functional_call(m_card, on(p_cpu, dev),
+                                        (sg._unit(x8.to(dev)),))
+    logit_err = float((lg.cpu() - lc).abs().max())
+    loss_c, g_c = sg.loss_and_grads(m_cpu, p_cpu, x8, y8)
+    loss_g, g_g = sg.loss_and_grads(m_card, on(p_cpu, dev), x8.to(dev),
+                                    y8.to(dev))
+    loss_err = abs(float(loss_g) / float(loss_c) - 1)
+    grad_err = _rel_leaf(g_g, g_c)
+    assert logit_err <= 1e-4 and loss_err <= 1e-5 and grad_err <= 1e-4, (
+        logit_err, loss_err, grad_err)
+    n_seg = sum(v.numel() for v in p_cpu.values())
+    sg.train_segmenter(seg_tiles, seg_masks, steps=2, batch=SEG_BATCH,
+                       seed=SEED, device=dev, **SEG_CFG)  # warm-up
+    seg_ms = {}
+    for n in SEG_STEPS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        e = _events()
+        e[0].record()
+        predict, _ = sg.train_segmenter(seg_tiles, seg_masks, steps=n,
+                                        batch=SEG_BATCH, seed=SEED,
+                                        device=dev, **SEG_CFG)
+        e[1].record()
+        torch.cuda.synchronize()
+        seg_ms[n] = e[0].elapsed_time(e[1])
+    seg_peak = _peak_text(base)
+    per_step = (seg_ms[SEG_STEPS[1]] - seg_ms[SEG_STEPS[0]]) / (
+        SEG_STEPS[1] - SEG_STEPS[0])
+    pred = predict(seg_tiles[:SEG_BATCH])
+    assert pred.dtype == torch.int32 and pred.shape == (SEG_BATCH, SEG_SIDE,
+                                                        SEG_SIDE)
+    log(58, f"U-Net base {SEG_CFG['base']} depth {SEG_CFG['depth']} "
+            f"({n_seg:,} parameters), card against CPU on 8 tiles of "
+            f"{SEG_SIDE}^2: logits max |diff| {logit_err:.2e}, loss "
+            f"{loss_err:.2e} relative, gradients {grad_err:.2e} of each "
+            f"leaf's largest; train_segmenter batch {SEG_BATCH}, after a "
+            f"2-step warm-up: "
+            f"{SEG_STEPS[0]} steps {seg_ms[SEG_STEPS[0]]:.1f} ms, "
+            f"{SEG_STEPS[1]} steps {seg_ms[SEG_STEPS[1]]:.1f} ms (CUDA "
+            f"events, set-up included) -> {per_step:.3f} ms/step = "
+            f"{SEG_BATCH * 1e3 / per_step:.1f} tiles/s; {seg_peak}; card "
+            f"'{smi}'")
+
+    # 59. DannCNN, the card against the CPU on the same weights with
+    # dropout off on both (the card's generator draws other masks), on 64
+    # patches uniform in [0, 1]. flax's BatchNorm variance E[x^2] - E[x]^2
+    # cancels in float32, so the card and the CPU are each held to the
+    # CPU's float64 evaluation of the same step: loss rtol 1e-4, gradients
+    # 2e-3 and statistics 1e-4 of each leaf's largest value (on patches
+    # whose mean dwarfs their spread, as the timed run's below, float32
+    # gradients sit percents from float64 on either device). Then the
+    # three-phase iteration at batch 64 on those uint8 patches, timed.
+    rng = np.random.default_rng(SEED + 59)
+    n_dann = 512
+    labels = rng.integers(0, 2, n_dann)
+    domains = rng.integers(0, 3, n_dann)
+    patches = ((rng.random((n_dann, 63, 63, 3)) * 0.3
+                + labels[:, None, None, None] * 0.35) * 255).astype(np.uint8)
+    model_c, st_c, tx_d = dn.init_dann(SEED, n_domains=3, device=cpu)
+    model_g = dn.DannCNN(n_domains=3, device=dev)
+    st_g = st_c._replace(params=on(st_c.params, dev),
+                         batch_stats=on(st_c.batch_stats, dev),
+                         opt_state=dn.SgdState(on(st_c.opt_state.trace, dev)))
+    xb = rng.random((DANN_BATCH, 63, 63, 3)).astype(np.float32)
+    yb, db = labels[:DANN_BATCH], domains[:DANN_BATCH]
+    model_64 = dn.DannCNN(n_domains=3, device=cpu).double()
+    st_64 = st_c._replace(
+        params={k: v.double() for k, v in st_c.params.items()},
+        batch_stats={k: v.double() for k, v in st_c.batch_stats.items()})
+    errs = {}
+    with _patched(dn, dropout=lambda x, *a, **k: x):
+        for name, ph in (("mitosis", dn.PHASE_MITOSIS),
+                         ("domain", dn.PHASE_DOMAIN),
+                         ("adversarial", dn.PHASE_ADVERSARIAL)):
+            w = dn.loss_and_grads(model_64, st_64, xb, yb, db, *ph)
+            for where, (mod, state) in (("card", (model_g, st_g)),
+                                        ("cpu", (model_c, st_c))):
+                a = dn.loss_and_grads(mod, state, xb, yb, db, *ph)
+                e = (abs(float(a[0]) / float(w[0]) - 1),
+                     _rel_leaf(a[3], w[3]), _rel_leaf(a[4], w[4]))
+                errs[f"{name} {where}"] = e
+                assert e[0] <= 1e-4 and e[1] <= 2e-3 and e[2] <= 1e-4, (
+                    name, where, e)
+    X = torch.from_numpy(patches).to(dev)
+    Y = torch.from_numpy(labels).to(dev)
+    D = torch.from_numpy(domains).to(dev)
+    step = dn.make_train_step(model_g, tx_d)
+    phases = (dn.PHASE_MITOSIS, dn.PHASE_DOMAIN, dn.PHASE_ADVERSARIAL)
+
+    def dann_iter(state, i):
+        for j, ph in enumerate(phases):
+            s = ((3 * i + j) * DANN_BATCH) % (n_dann - DANN_BATCH)
+            state, m = step(state, X[s:s + DANN_BATCH], Y[s:s + DANN_BATCH],
+                            D[s:s + DANN_BATCH], *ph)
+        return state, m
+
+    st = st_g
+    for i in range(3):
+        st, _ = dann_iter(st, i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    e = _events()
+    e[0].record()
+    for i in range(DANN_ITERS):
+        st, m = dann_iter(st, i)
+    e[1].record()
+    torch.cuda.synchronize()
+    dann_ms = e[0].elapsed_time(e[1]) / DANN_ITERS
+    dann_peak = _peak_text(base)
+    assert np.isfinite(float(m["loss"]))
+    log(59, "DannCNN (63^2, 3 domains), the card and the CPU each "
+            "against the CPU's float64 on the same weights, dropout off: "
+            + "; ".join(
+                f"{k} loss {v[0]:.1e}, gradients {v[1]:.1e}, statistics "
+                f"{v[2]:.1e}" for k, v in errs.items())
+            + f" (relative); the three-phase iteration at batch "
+              f"{DANN_BATCH}, dropout on: {dann_ms:.3f} ms = "
+              f"{3 * DANN_BATCH * 1e3 / dann_ms:.1f} imgs/s over "
+              f"{DANN_ITERS} iterations (CUDA events); {dann_peak}; card "
+              f"'{smi}'")
+    dann_model, dann_state = model_g, st
+
+    # 60. MobileNetDann at the TCGA capacity: 224^2, batch 64, Adam 1e-3,
+    # the three phases per iteration (scripts/train_dann_capacity.py's
+    # throughput mode); timed, then one iteration traced.
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    mnet = bb.MobileNetDann(n_domains=2, alpha=0.5, device=dev,
+                            generator=gen)
+    trunk = bb.trunk_size(mnet.MobileNetBackbone_0)
+    assert trunk == MOBILENET_TRUNK, trunk
+    n_mnet = sum(p.numel() for p in mnet.parameters())
+    adam = tf.adam(lambda count: 1e-3)
+    mst = dn.model_state(mnet, SEED, adam)
+    mstep = dn.make_train_step(mnet, adam)
+    Xm, ym, dm = synthetic.two_domain_task(4 * MOBILENET_BATCH, seed=SEED,
+                                           size=MOBILENET_SIDE,
+                                           correlation=0.5)
+    Xm, ym, dm = (torch.from_numpy(a).to(dev) for a in (Xm, ym, dm))
+
+    def m_iter(state, i):
+        s = (i % 4) * MOBILENET_BATCH
+        for ph in phases:
+            state, m = mstep(state, Xm[s:s + MOBILENET_BATCH],
+                             ym[s:s + MOBILENET_BATCH],
+                             dm[s:s + MOBILENET_BATCH], *ph)
+        return state, m
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    mst, m = m_iter(mst, 0)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    e = _events()
+    e[0].record()
+    losses = []
+    for i in range(MOBILENET_ITERS):
+        mst, m = m_iter(mst, i + 1)
+        losses.append(m["loss_mit"])
+    e[1].record()
+    torch.cuda.synchronize()
+    mnet_ms = e[0].elapsed_time(e[1]) / MOBILENET_ITERS
+    mnet_peak = _peak_text(base)
+    assert all(np.isfinite(float(v)) for v in losses)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mst, _ = m_iter(mst, 0)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    acts = trace_activities(prof)
+    busy = sum(t for _, t in acts.values())
+    top = sorted(acts.items(), key=lambda kv: -kv[1][1])[:4]
+    imgs_s = 3 * MOBILENET_BATCH * 1e3 / mnet_ms
+    log(60, f"MobileNetDann alpha 0.5: trunk {trunk:,} (parameters + "
+            f"BatchNorm statistics, keras's), {n_mnet:,} parameters; "
+            f"{MOBILENET_SIDE}^2, batch {MOBILENET_BATCH}, Adam, three "
+            f"phases per iteration: first iteration {first_s:.2f} s, then "
+            f"{mnet_ms:.1f} ms per iteration = {imgs_s:.1f} imgs/s over "
+            f"{MOBILENET_ITERS} (CUDA events); {mnet_peak}; task loss "
+            f"{float(losses[0]):.4f} -> {float(losses[-1]):.4f}; card "
+            f"'{smi}'")
+    log(60, f"one traced iteration: {wall_ms:.1f} ms on the host clock, "
+            f"device busy {busy:.1f} ms, idle {1 - busy / wall_ms:.2%}; top "
+            f"device activities: " + "; ".join(
+                f"{k[:60]} x{n} {t:.1f} ms ({t / busy:.1%})"
+                for k, (n, t) in top))
+    del mnet, mst, Xm, ym, dm, prof
+
+    # 61. The six CLIs as subprocesses, started together, at small step
+    # counts; the probe and the seg demo's --capacity-ckpt on phase 49's
+    # card checkpoint and on phase 57's CPU-saved one.
+    root = Path(__file__).resolve().parent
+
+    def cli(name, *args):
+        return [sys.executable, str(root / "scripts" / f"torch_{name}.py"),
+                *map(str, args), "--device", dev.type]
+
+    seg_small = ["--size", 64, "--train-tiles", 32, "--eval-tiles", 8,
+                 "--batch", 16]
+    cap = ["--methods", "flow", "--seg-steps", 10, "--class-match",
+           "--class-match-scope", "center", "--transfer", "quantile"]
+    probe = ["--size", 64, "--tiles", 8, "--batch", 8, "--template-tiles", 16]
+    pil = _has_pil()
+    cmds = {
+        "seg": cli("seg_transfer_demo", *seg_small, "--seg-steps", 30,
+                   "--flow-steps", 10, "--flow-hidden", 16,
+                   "--flow-blocks", 1, "--methods",
+                   "raw,macenko,vahadane,reinhard,flow", "--out",
+                   work / "seg", *(["--seg-augment"] if pil else [])),
+        "seg_cap": cli("seg_transfer_demo", *seg_small, *cap,
+                       "--capacity-ckpt", work / "capacity_ckpt", "--out",
+                       work / "seg_cap"),
+        "seg_cap_cpu": cli("seg_transfer_demo", *seg_small, *cap,
+                           "--capacity-ckpt", work / "capacity_ckpt_cpu",
+                           "--out", work / "seg_cap_cpu"),
+        "effect": cli("flow_effect_demo", "--steps", 20, "--image-size", 32,
+                      "--batch", 16, "--tiles-per-center", 8, "--hidden", 16,
+                      "--blocks", 1, "--out", work / "effect"),
+        "probe": cli("flow_transfer_probe", *probe, "--ckpt",
+                     work / "capacity_ckpt", "--out", work / "probe"),
+        "probe_cpu": cli("flow_transfer_probe", *probe, "--ckpt",
+                         work / "capacity_ckpt_cpu", "--out",
+                         work / "probe_cpu"),
+        "dann": cli("train_dann", "--reps", 1, "--epochs", 1, "--iters", 20,
+                    "--warmup", 5, "--augment", "hed", "--out",
+                    work / "dann"),
+        "invariance": cli("dann_invariance_demo", "--iters", 20, "--reps", 1,
+                          "--n-train", 256, "--n-test", 128, "--out",
+                          work / "invariance"),
+        "capacity": cli("train_dann_capacity", *CAPACITY_CLI),
+        "capacity_inv": cli("train_dann_capacity", "--invariance", "--size",
+                            64, "--iters", 5, "--reps", 1, "--n-train", 128),
+        "capacity_short": cli("train_dann_capacity", "--shortcut",
+                              "--domain-cue", "stain", "--size", 64,
+                              "--iters", 5, "--reps", 1, "--n-train", 128),
+    }
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(c, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True, cwd=root)
+             for k, c in cmds.items()}
+    outs = {}
+    try:
+        for k, p in procs.items():
+            out, err = p.communicate(timeout=400)
+            outs[k] = out
+            assert p.returncode == 0, (k, out[-2000:] + err[-3000:])
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    cli_s = time.perf_counter() - t0
+    res = {k: json.loads(v.strip().splitlines()[-1]) for k, v in outs.items()
+           if k not in ("dann",)}
+    assert set(res["seg"]["conditions"]) == {
+        "raw", "macenko", "vahadane", "reinhard", "flow"}
+    for k in ("seg_cap", "seg_cap_cpu"):
+        assert "capacity flow checkpoint: step 10, EMA" in outs[k], k
+    for c, a in res["probe"].items():
+        b = res["probe_cpu"][c]
+        assert a["class_usage"] == b["class_usage"], (c, a, b)
+        assert abs(a["bpd"] - b["bpd"]) <= 1e-3 * abs(a["bpd"]), (c, a, b)
+    assert res["capacity"]["trunk_params_plus_stats"] == MOBILENET_TRUNK
+    assert "mean [auc_int f1_int auc_ext f1_ext]:" in outs["dann"]
+    log(61, f"the six CLIs, {len(cmds)} processes started together, all "
+            f"exit 0 in {cli_s:.1f} s: seg demo shifted mIoU "
+            + ", ".join(f"{k} {v['shifted_mean_miou']}"
+                        for k, v in res["seg"]["conditions"].items())
+            + (" (--seg-augment)" if pil else "")
+            + f"; --capacity-ckpt from the card's checkpoint "
+              f"{res['seg_cap']['conditions']['flow']['per_center']} and "
+              f"from the CPU-saved one "
+              f"{res['seg_cap_cpu']['conditions']['flow']['per_center']}; "
+              f"probe: both checkpoints give the same class usage, bpd "
+              f"{res['probe']['center0']['bpd']} / "
+              f"{res['probe_cpu']['center0']['bpd']} (center 0); effect "
+              f"demo NMI sd {res['effect']['raw_nmi_sd']} -> "
+              f"{res['effect']['normalized_nmi_sd']}; invariance "
+              f"{json.dumps(res['invariance']['probe_dann'])}; capacity "
+              f"{res['capacity']['imgs_per_s']} imgs/s (host clock, 5 "
+              f"iterations, 224^2, batch 64), invariance "
+              f"{json.dumps(res['capacity_inv'])}, shortcut (stain cue) "
+              f"{json.dumps(res['capacity_short'])}; card '{smi}'")
+    if not pil:
+        log(61, "PIL is not on this host: --seg-augment (JPEG "
+                "recompression) is not run here; the CPU tests run it")
+
+    # 62. The generators with a card model: phase 59's DannCNN scores every
+    # 63^2 window of a 1024^2 field at stride 32, against the CPU model of
+    # the same weights on its first 255 rows (atol 1e-4); hard negatives.
+    field = tiles(1, 1024, SEED + 62)[0]
+    cpu_state = dann_state._replace(
+        params=on(dann_state.params, cpu),
+        batch_stats=on(dann_state.batch_stats, cpu))
+
+    def card_fn(b):
+        return dn.predict_mitosis(dann_model, dann_state, b)
+
+    def cpu_fn(b):
+        return dn.predict_mitosis(model_c, cpu_state, b)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    heat = generators.sliding_window_scores(card_fn, field, 63, 32, 256)
+    heat_s = time.perf_counter() - t0
+    crop = generators.sliding_window_scores(cpu_fn, field[:255], 63, 32, 256)
+    heat_err = float(np.abs(heat[:crop.shape[0]] - crop).max())
+    assert heat.shape == (31, 31) and np.isfinite(heat).all()
+    assert heat_err <= 1e-4, heat_err
+    win = generators.extract_patches(field, 63, 32)
+    idx, scores = generators.mine_hard_negatives(
+        card_fn, win, np.zeros(len(win), np.int64), 16, 256)
+    assert len(idx) == 16 and (np.diff(scores) <= 0).all()
+    if _has_pil():
+        generators.save_heatmap(str(work / "heatmap.png"), heat)
+        assert (work / "heatmap.png").exists()
+        heat_msg = "save_heatmap wrote its PNG"
+    else:
+        heat_msg = ("PIL is not on this host: save_heatmap is not run here "
+                    "(the CPU tests hold it)")
+    log(62, f"sliding_window_scores, phase 59's DannCNN on the card: a "
+            f"1024^2 field, 63^2 windows at stride 32 -> {heat.shape} in "
+            f"{heat_s * 1e3:.1f} ms (host clock, {len(win)} windows), the "
+            f"CPU model of the same weights on the first 255 rows max "
+            f"|diff| {heat_err:.2e}; mine_hard_negatives top 16 of "
+            f"{len(win)} (scores {scores[0]:.4f} .. {scores[-1]:.4f}); "
+            f"{heat_msg}")
+    log(62, f"phases 57-62 took {time.perf_counter() - t_phases:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to PyTorch", file=sys.stderr)
@@ -2058,6 +2520,7 @@ def run(dev) -> int:
     from stainlib_tpu_torch.normalization import extractive, reinhard
 
     assert "jax" not in sys.modules, "the port imported jax"
+    t_run = time.perf_counter()
 
     # 1. Environment.
     smi = nvidia_smi()
@@ -2733,6 +3196,8 @@ def run(dev) -> int:
         k.update(bound(*shapes[k["name"]]), library_ms=None)
     assert len(kernels) == 10, [k["name"] for k in kernels]
 
+    log(62, f"the whole run, phases 1-62: "
+            f"{time.perf_counter() - t_run:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

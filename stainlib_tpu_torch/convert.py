@@ -7,8 +7,10 @@ The counterparts of the JAX package's fitted state: ``ExtractiveParams``
 and ``FusedStainAugmentState`` (``augmentation/functional.py:149-196``),
 the slide-level estimates ``SlideStainParams`` and
 ``SlideReinhardParams`` (``normalization/slide.py:62-74``), the flow
-trainer's ``FlowState`` (``models/train_flow.py:85-91``) and the toy
-flow's variables (``models/toy.py``). Given the JAX
+trainer's ``FlowState`` (``models/train_flow.py:85-91``), the toy
+flow's variables (``models/toy.py``), the U-Net's parameters
+(``models/segmentation.py``) and the DANN nets' variables and SGD or Adam
+state (``models/dann.py``, ``models/backbones.py``). Given the JAX
 state as numpy arrays, build the port's, so both packages can transform,
 pop or train from the same state.
 """
@@ -25,8 +27,9 @@ from stainlib_tpu_torch.augmentation.functional import (
     FusedStainAugmentState,
     StainAugmentParams,
 )
+from stainlib_tpu_torch.models.dann import DannState, SgdState
 from stainlib_tpu_torch.models.train_flow import (
-    AdamState, FlowState, MultiStepsState)
+    AdamState, FlowState, MultiStepsState, rng_state)
 from stainlib_tpu_torch.normalization.extractive import ExtractiveParams
 from stainlib_tpu_torch.normalization.reinhard import ReinhardParams
 from stainlib_tpu_torch.normalization.slide import (
@@ -190,3 +193,90 @@ def flow_state_from_jax(params, spectral, opt_state=None, ema=None,
         step=int(step),
         rng=None,
     )
+
+
+def _net_flat(tree, device, prefix="") -> dict:
+    """A flax variable tree (numpy leaves) -> {port name: float32 tensor}:
+    ``Conv_0/kernel`` (HWIO) -> ``Conv_0.weight`` (OIHW, a depthwise
+    (3, 3, 1, C) -> (C, 1, 3, 3)); a Dense ``kernel`` (in, out) is kept;
+    other leaves keep their names. Sub-module names are flax's."""
+    out = {}
+    for key, val in tree.items():
+        path = f"{prefix}.{key}" if prefix else key
+        if isinstance(val, dict):
+            out.update(_net_flat(val, device, path))
+            continue
+        if type(val).__name__ == "MaskedNode":
+            continue
+        a = np.array(val, np.float32)
+        if key == "kernel" and a.ndim == 4:
+            a, path = a.transpose(3, 2, 0, 1), f"{prefix}.weight"
+        out[path] = torch.tensor(np.ascontiguousarray(a), device=device)
+    return out
+
+
+def unet_params_from_jax(params, device="cuda") -> dict:
+    """A JAX ``UNet``'s ``params`` (numpy leaves) -> the port's ``UNet``
+    parameters: ``Conv_i`` -> ``convs.i`` (OIHW); ``ConvTranspose_i`` ->
+    ``ups.i``, its (2, 2, in, out) kernel flipped in both spatial axes and
+    laid out (in, out, 2, 2) for ``conv_transpose2d`` (flax's
+    ``transpose_kernel=False`` convolves the dilated input with the kernel
+    as it is)."""
+    dev = _device(device)
+    out = {}
+    for name, leaves in params.items():
+        kind, i = name.rsplit("_", 1)
+        w = np.array(leaves["kernel"], np.float32)
+        if kind == "ConvTranspose":
+            mod, w = f"ups.{i}", w[::-1, ::-1].transpose(2, 3, 0, 1)
+        else:
+            mod, w = f"convs.{i}", w.transpose(3, 2, 0, 1)
+        out[f"{mod}.weight"] = torch.tensor(np.ascontiguousarray(w),
+                                            device=dev)
+        out[f"{mod}.bias"] = _to(leaves["bias"], dev)
+    return out
+
+
+def _merge_masked(trees, device) -> dict:
+    out = {}
+    for t in trees:
+        out.update(_net_flat(t, device))
+    return out
+
+
+def _dann_opt_from_jax(opt_state, device):
+    """optax's ``multi_transform`` of two nesterov ``sgd`` (the traces of
+    both groups, merged), or ``adam``'s (count, mu, nu)."""
+    adam = _find(opt_state, "nu")
+    if adam is not None:
+        return AdamState(count=int(adam.count),
+                         mu=_net_flat(adam.mu, device),
+                         nu=_net_flat(adam.nu, device))
+    groups = opt_state.inner_states.values()
+    return SgdState(trace=_merge_masked(
+        [_find(g, "trace").trace for g in groups], device))
+
+
+def dann_state_from_jax(params, batch_stats, opt_state=None, seed: int = 0,
+                        device="cuda") -> DannState:
+    """A JAX ``DannState``'s ``params``, ``batch_stats`` and ``opt_state``
+    (numpy pytrees) -> the port's ``DannState`` for the net of the same
+    flax names (``DannCNN``, ``BaselineCNN``, ``DannCNNGap``,
+    ``MobileNetDann``) on ``device``. The dropout key has no counterpart:
+    ``rng`` is ``rng_state(seed, 1)``; ``opt_state`` None stays None."""
+    dev = _device(device)
+    return DannState(
+        params=_net_flat(params, dev),
+        batch_stats=_net_flat(batch_stats, dev),
+        opt_state=None if opt_state is None else _dann_opt_from_jax(
+            opt_state, dev),
+        rng=rng_state(seed, 1))
+
+
+def mobilenet_dann_from_jax(variables, opt_state=None, seed: int = 0,
+                            device="cuda") -> DannState:
+    """A JAX ``MobileNetDann``'s variables (``{"params", "batch_stats"}``,
+    numpy leaves) and optional optimizer state -> the port's state for
+    ``backbones.MobileNetDann``."""
+    return dann_state_from_jax(variables["params"], variables["batch_stats"],
+                               opt_state, seed, device)

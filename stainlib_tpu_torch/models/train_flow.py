@@ -96,7 +96,7 @@ class FlowState(NamedTuple):
     opt_state: Any  # AdamState, or MultiStepsState with update_freq > 1
     ema: EmaState
     step: int
-    rng: Any  # the probes' torch.Generator state (Generator.get_state())
+    rng: Any  # the probes' (seed, counter): rng_state(), int64 on the CPU
 
 
 def build_models(cfg: FlowConfig, device="cuda", generator=None):
@@ -267,10 +267,33 @@ def _update_applied(opt_state) -> bool:
 # ---- state, loss, step ----------------------------------------------------
 
 
+def rng_state(seed: int, counter: int = 0) -> torch.Tensor:
+    """The probes' generator state: ``(seed, counter)``, an int64 tensor on
+    the CPU of one shape on every device, as the JAX package's key is. A
+    step seeds a ``torch.Generator`` on its own device from both and
+    advances the counter by one, so a checkpoint saved on one device
+    restores into a template made on another, and a resume on one device
+    draws the uninterrupted run's probes."""
+    return torch.tensor([int(seed) & (2**63 - 1), int(counter)],
+                        dtype=torch.int64)
+
+
+def _mix(seed: int, counter: int) -> int:
+    """splitmix64 of the pair: the seed of one step's generator."""
+    z = (seed * 0x9E3779B97F4A7C15 + counter + 1) & (2**64 - 1)
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & (2**64 - 1)
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & (2**64 - 1)
+    return z ^ (z >> 31)
+
+
 def _generator(rng, device) -> torch.Generator:
-    gen = torch.Generator(device=device)
-    gen.set_state(rng)
-    return gen
+    seed, counter = (int(v) for v in rng)
+    return torch.Generator(device=device).manual_seed(_mix(seed, counter))
+
+
+def _advance(rng) -> torch.Tensor:
+    seed, counter = (int(v) for v in rng)
+    return rng_state(seed, counter + 1)
 
 
 def _detached(named) -> dict:
@@ -311,7 +334,7 @@ def init_flow_state(cfg: FlowConfig, generator, sample_hsd=None,
         opt_state=tx.init(params),
         ema=ema_init(params, cfg.ema_decay),
         step=0,
-        rng=generator.get_state(),
+        rng=rng_state(generator.initial_seed()),
     )
     return flow, gmm, state, tx
 
@@ -377,16 +400,17 @@ def make_train_step(flow, gmm, cfg: FlowConfig, tx: Optimizer, mesh=None,
     (``pmean_grads``, the DistributedOptimizer equivalent; ``hsd`` is then
     this rank's rows); the optimizer update; the EMA, where the update was
     applied; the Lipschitz refresh with the new parameters from the old
-    spectral state. The probes are drawn from the state's generator, which
-    every rank holds alike, at this rank's shape, as every shard of the
-    JAX package's step splits the same key."""
+    spectral state. The probes are drawn from a generator seeded by the
+    state's ``rng`` (:func:`rng_state`), which every rank holds alike, at
+    this rank's shape, as every shard of the JAX package's step splits the
+    same key."""
 
     def step(state: FlowState, hsd, probes=None):
         rng = state.rng
         if probes is None:
             gen = _generator(rng, hsd.device)
             probes = flow.draw_probes(_density01(hsd).shape, gen, hsd.device)
-            rng = gen.get_state()
+            rng = _advance(rng)
         loss, grads = loss_and_grads(flow, gmm, cfg, state.params,
                                      state.spectral, hsd, probes)
         if mesh is not None:

@@ -113,9 +113,9 @@ def test_validate_card_vs_cpu(model, dev, transfer):
 def test_flow_normalize_slide_stream_on_the_card(model, dev, tmp_path,
                                                  monkeypatch):
     """The stream on the card against the CPU's; the writer is not run
-    where the host has no libtiff. Each deploy restores a checkpoint whose
-    generator state is its device's (5,056 bytes on the CPU, 16 on CUDA):
-    a checkpoint restores only into a template of the same shapes."""
+    where the host has no libtiff. One checkpoint, saved from the CPU
+    state, serves both deploys: its ``rng`` leaf has one layout on every
+    device."""
     lv0 = np.concatenate([np.concatenate(list(b), axis=1) for b in
                           multi_center_batches(range(4), 2, 4, 16, 16,
                                                seed=3)[0]], axis=0)
@@ -133,15 +133,62 @@ def test_flow_normalize_slide_stream_on_the_card(model, dev, tmp_path,
     if not native.tiff_native_available():
         monkeypatch.setattr(sl, "write_tiff_pyramid", lambda *a, **k: None)
     tmpl = multi_center_batches([0], 8, 8, 16, 16, seed=5)[0][0]
+    ck.save_checkpoint(str(tmp_path / "ck"), model["state"], 0)
     for d in (dev, torch.device("cpu")):
-        rng = torch.Generator(device=d).get_state()
-        ck.save_checkpoint(str(tmp_path / d.type), model["state"]._replace(
-            rng=rng), 0)
         sl.flow_normalize_slide(src, str(tmp_path / "o.tif"),
-                                str(tmp_path / d.type), template=tmpl,
+                                str(tmp_path / "ck"), template=tmpl,
                                 batch=4, n_src_tiles=4, cfg=CFG,
                                 compression="none", device=d)
     _u8_budget(seen[0][None], seen[1][None])
+
+
+def test_checkpoints_restore_across_devices(model, dev, tmp_path,
+                                            monkeypatch):
+    """A state saved on the CPU restores into a template made on the card,
+    and the reverse; both deploy ``flow_normalize_slide`` on the card to
+    the same bytes, and a restored state steps on as it would have."""
+    lv0 = np.concatenate([np.concatenate(list(b), axis=1) for b in
+                          multi_center_batches(range(4), 2, 4, 16, 16,
+                                               seed=3)[0]], axis=0)
+    src = str(tmp_path / "s.wsiraw")
+    native.write_wsiraw(src, [lv0])
+    seen = []
+    real = sl._stream_canvas
+
+    def keep(*a, **k):
+        res = real(*a, **k)
+        seen.append(res[0])
+        return res
+
+    monkeypatch.setattr(sl, "_stream_canvas", keep)
+    if not native.tiff_native_available():
+        monkeypatch.setattr(sl, "write_tiff_pyramid", lambda *a, **k: None)
+    tmpl = multi_center_batches([0], 8, 8, 16, 16, seed=5)[0][0]
+    cpu_state = model["state"]
+    card_state = tf.init_flow_state(CFG, 0, model["hsd"][0].to(dev), dev)[2]
+    card_state = card_state._replace(
+        params=_on(cpu_state.params, dev),
+        spectral=_on(cpu_state.spectral, dev),
+        ema=card_state.ema._replace(params=_on(cpu_state.params, dev)))
+    ck.save_checkpoint(str(tmp_path / "from_cpu"), cpu_state, 3)
+    ck.save_checkpoint(str(tmp_path / "from_card"), card_state, 3)
+    on_card = ck.restore_checkpoint(str(tmp_path / "from_cpu"), card_state)
+    on_cpu = ck.restore_checkpoint(str(tmp_path / "from_card"), cpu_state)
+    assert on_card.params["gmm"]["mu"].device.type == "cuda"
+    assert on_cpu.params["gmm"]["mu"].device.type == "cpu"
+    assert torch.equal(on_card.rng, cpu_state.rng)
+    for name in ("from_cpu", "from_card"):
+        sl.flow_normalize_slide(src, str(tmp_path / "o.tif"),
+                                str(tmp_path / name), template=tmpl,
+                                batch=4, n_src_tiles=4, cfg=CFG,
+                                compression="none", device=dev)
+    assert np.array_equal(seen[0], seen[1])
+    flow, gmm = tf.build_models(CFG, dev)
+    step = tf.make_train_step(flow, gmm, CFG, tf.make_optimizer(CFG))
+    hsd = model["hsd"][1].to(dev)
+    after, loss = step(on_card, hsd)
+    assert torch.isfinite(loss) and after.step == on_card.step + 1
+    assert int(after.rng[1]) == int(on_card.rng[1]) + 1
 
 
 def test_sample_flow_and_toy_card_vs_cpu(model, dev):

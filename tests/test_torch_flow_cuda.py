@@ -55,8 +55,7 @@ def _on(state, dev):
     moved = torch.utils._pytree.tree_map(
         lambda t: t.to(dev) if isinstance(t, torch.Tensor) else t,
         state._replace(rng=None))
-    return moved._replace(
-        rng=torch.Generator(device=dev).manual_seed(0).get_state())
+    return moved._replace(rng=tf.rng_state(0))
 
 
 def _rel(a, b):

@@ -76,7 +76,7 @@ def setup(tmp_path_factory):
     jckpt.save_checkpoint(jdir, jax.tree.map(np.asarray, state), 7)
     tdir = str(work / "torch_ckpt")
     tckpt.save_checkpoint(tdir, to_port(state)._replace(
-        rng=torch.Generator().manual_seed(0).get_state()), 7)
+        rng=ttf.rng_state(0)), 7)
     template = he_batch(8, 16, 16, seed=5, background_frac=0.0)
     return dict(work=work, src=src, lv0=lv0, jdir=jdir, tdir=tdir,
                 template=template)

@@ -114,17 +114,24 @@ def test_import_needs_no_jax_and_builds_nothing():
             "from stainlib_tpu_torch.normalization import slide\n"
             "from stainlib_tpu_torch import convert\n"
             "from stainlib_tpu_torch.models import (\n"
-            "    flow_layers, gmm, resflow, train_flow)\n"
+            "    flow_layers, gmm, resflow, train_flow, color_eval,\n"
+            "    validate_flow, sampling, toy, segmentation, dann,\n"
+            "    backbones, evaluation, train_dann)\n"
             "from stainlib_tpu_torch.utils import checkpoint, ema, meters\n"
-            "from stainlib_tpu_torch.data import synthetic\n"
+            "from stainlib_tpu_torch.data import synthetic, generators\n"
             "runpy.run_path('tests/_torch_mp_worker.py')\n"
             "runpy.run_path('scripts/torch_dryrun_multichip.py')\n"
-            "main = runpy.run_path('scripts/torch_train_flow.py')['main']\n"
-            "try:\n"
-            "    main(['--help'])\n"
-            "except SystemExit as e:\n"
-            "    assert e.code == 0\n"
-            "for name in ('jax', 'flax', 'optax', 'stainlib_tpu'):\n"
+            "for cli in ('train_flow', 'seg_transfer_demo',\n"
+            "            'flow_effect_demo', 'flow_transfer_probe',\n"
+            "            'train_dann', 'dann_invariance_demo',\n"
+            "            'train_dann_capacity'):\n"
+            "    main = runpy.run_path(f'scripts/torch_{cli}.py')['main']\n"
+            "    try:\n"
+            "        main(['--help'])\n"
+            "    except SystemExit as e:\n"
+            "        assert e.code == 0, cli\n"
+            "for name in ('jax', 'flax', 'optax', 'sklearn',\n"
+            "             'stainlib_tpu'):\n"
             "    assert name not in sys.modules, name\n"
             "assert not torch.distributed.is_initialized()\n"
             "assert _build._lib is None and not _build.build_info\n"
@@ -133,8 +140,8 @@ def test_import_needs_no_jax_and_builds_nothing():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                    check=True, timeout=120)
-    pattern = re.compile(r"^\s*(import|from) (jax|flax|optax|stainlib_tpu)\b",
-                         re.M)
+    pattern = re.compile(
+        r"^\s*(import|from) (jax|flax|optax|sklearn|stainlib_tpu)\b", re.M)
     sources = [*(ROOT / "stainlib_tpu_torch").rglob("*.py"),
                *(ROOT / "scripts").glob("torch_*.py"),
                ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_mp_worker.py"]

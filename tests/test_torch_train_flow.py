@@ -61,7 +61,7 @@ def _one_torch_thread():
 
 
 def _gen(seed=0):
-    return torch.Generator().manual_seed(seed).get_state()
+    return ttf.rng_state(seed)
 
 
 @pytest.fixture(scope="module")
@@ -360,6 +360,39 @@ def test_resume_continues_bit_identically(tmp_path):
     assert len(a) == len(b)
     assert all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
                for x, y in zip(a, b))
+
+
+def test_rng_leaf_has_one_layout_and_restores_across_templates(tmp_path):
+    """The probes' state is (seed, counter), int64 on the CPU, whatever
+    device or generator made the state: a checkpoint round-trips through a
+    template whose ``rng`` leaf came from another generator, and the step
+    draws from it the same probes as the uninterrupted state would."""
+    cfg = PCFG
+    hsd = torch.from_numpy(hsd_batch(2, 16, seed=20))
+    flow, gmm, state, tx = ttf.init_flow_state(cfg, 5, hsd, "cpu")
+    other = ttf.init_flow_state(
+        cfg, torch.Generator().manual_seed(123456789), hsd, "cpu")[2]
+    assert state.rng.dtype == other.rng.dtype == torch.int64
+    assert tuple(state.rng.shape) == tuple(other.rng.shape) == (2,)
+    assert state.rng.device.type == "cpu"
+    assert state.rng.tolist() == [5, 0] and other.rng.tolist() == [123456789,
+                                                                     0]
+    shapes = [tuple(t.shape) for t in torch.utils._pytree.tree_leaves(state)
+              if isinstance(t, torch.Tensor)]
+    assert shapes == [tuple(t.shape) for t in
+                      torch.utils._pytree.tree_leaves(other)
+                      if isinstance(t, torch.Tensor)]
+    step = ttf.make_train_step(flow, gmm, cfg, tx)
+    s1, _ = step(state, hsd)
+    assert s1.rng.tolist() == [5, 1]
+    ckpt.save_checkpoint(str(tmp_path), s1, 1)
+    back = ckpt.restore_checkpoint(str(tmp_path), other)
+    assert torch.equal(back.rng, s1.rng)
+    (a, la), (b, lb) = step(s1, hsd), step(back, hsd)
+    assert torch.equal(la, lb) and torch.equal(a.rng, b.rng)
+    with pytest.raises(ValueError, match="shape"):
+        ckpt.restore_checkpoint(str(tmp_path), other._replace(
+            rng=torch.zeros(3, dtype=torch.int64)))
 
 
 def test_remat_and_remat_logdet_change_memory_not_math():
