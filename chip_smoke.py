@@ -87,8 +87,20 @@ the card, on uint8 H&E images (random synthetic images from a seed):
   asserted) at 224x224, batch 64, in imgs/s with peak memory and a traced
   iteration's idle share; the six segmentation and DANN CLIs as
   subprocesses, the probe and ``--capacity-ckpt`` on the card's and the
-  CPU-saved checkpoint; ``sliding_window_scores`` with a card model; and
-  the whole run's seconds.
+  CPU-saved checkpoint; ``sliding_window_scores`` with a card model;
+* the last modules (phases 63-68): ``utils`` on the card (the stall
+  watchdog, ``StepTimer`` around K1 against K1's CUDA-event time, a
+  ``torch.profiler`` trace of K1 with an ``annotate`` region) and
+  ``Config()``; ``scripts/torch_convert_wsi.py`` on the 16,384^2 slide
+  (WSIRAW to WSIRAW, every level byte for byte); the WSIRAW decode rates of
+  ``scripts/torch_bench_host_ingestion.py``; the reference-scale drive
+  ``scripts/torch_bench_wsi_scale.py`` at 20,480^2 (6,400 tiles, level 0
+  above the 1 GiB RAM-canvas threshold, so the canvas is a disk memmap; K3
+  once per batch of 128, 64 tiles against K3's plain version and the
+  functional path); the augmentation demo's panels on the card against the
+  CPU (K1, K2, K5, K7) and the walkthrough notebook's cells on the card;
+  ``scripts/torch_launch_multihost.sh`` through torchrun, NCCL at world 1,
+  its checkpoint restored; and the whole run's seconds.
 
 It builds the hand-written CUDA kernels from the sources in the checkout,
 counts each kernel's launches over its path, holds every kernel against
@@ -112,8 +124,10 @@ Phases print one line each. Before the last line it prints the card's name
 and power limit (``nvidia-smi``) and a JSON object describing each kernel:
 its launches on its path, its largest difference from its plain version,
 its time and the plain version's, K1's, K2's, K3's and K5's launches on the
-whole-slide phases (``slide_launches``) and K1's, K2's and K3's on phases
+whole-slide phases (``slide_launches``), K1's, K2's and K3's on phases
 45-47 (``sharded_launches``, ``stream_launches``, ``mesh_slide_launches``),
+K3's on phase 66 (``scale_launches``) and K1's, K2's, K3's, K5's and K7's
+on phase 67's demo and notebook (``example_launches``),
 and ``bound_ms``, the least time the card
 could take for the same work (the larger of its bytes over 3.35 TB/s and
 its float32 operations over 67 TFLOP/s, counted from the shapes of the
@@ -128,6 +142,7 @@ from __future__ import annotations
 import contextlib
 import importlib.util
 import json
+import os
 import re
 import subprocess
 import sys
@@ -796,7 +811,8 @@ def slide_phases(dev, smi, then=None) -> dict:
     big)`` while the work directory and the 16,384^2 slide (with its
     polygon, ``slide16k.xml``) still exist. Returns each route's
     launches on its main run (phase 42 for K3, phase 44 for K1, K2 and K5)
-    and, under ``<route>_<path>``, on the paths of phases 45-47."""
+    and, under ``<route>_<path>``, on the paths of phases 45-47 and on
+    those that ``then`` returns (phases 66-67)."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -1111,7 +1127,7 @@ def slide_phases(dev, smi, then=None) -> dict:
                                     drive, grid_tiles, assemble, counts,
                                     reset))
         if then is not None:  # phases that use the slide and its polygon
-            then(dev, smi, work, big)
+            launches.update(then(dev, smi, work, big) or {})
     return launches
 
 
@@ -1415,7 +1431,7 @@ def _tree_equal(a, b) -> bool:
         for x, y in zip(la, lb))
 
 
-def flow_phases(dev, smi, work: Path, big: str) -> None:
+def flow_phases(dev, smi, work: Path, big: str) -> dict:
     """Phases 48-51: the flow + GMM colour model (``models/``) and its
     trainer on the card. 48, a small flow on the card against the CPU with
     the same weights and probes; 49, ``reference_capacity()`` (502,855
@@ -1423,7 +1439,7 @@ def flow_phases(dev, smi, work: Path, big: str) -> None:
     replayed for determinism and resumed from a checkpoint; 50,
     ``bench.py --config flow``'s shape; 51, ``scripts/torch_train_flow.py``
     on the 16,384^2 slide of phase 41 with its polygon of phase 46, then
-    ``--resume``."""
+    ``--resume``; then phases 52-68. Returns :func:`rest_phases`' launches."""
     from torch.func import functional_call
     from torch.profiler import ProfilerActivity, profile
     from torch.utils._pytree import tree_map
@@ -1660,6 +1676,8 @@ def flow_phases(dev, smi, work: Path, big: str) -> None:
     deploy_phases(dev, smi, work, st_c)
     # 57-62. Cross-device checkpoints, the segmenter, DANN, their CLIs.
     model_phases(dev, smi, work)
+    # 63-68. utils, the data CLIs, the scale drive, examples, the launcher.
+    return rest_phases(dev, smi, work, big)
 
 
 # ---- Flow deployment and evaluation (phases 52-56) --------------------------
@@ -2501,6 +2519,359 @@ def model_phases(dev, smi, work: Path) -> None:
     log(62, f"phases 57-62 took {time.perf_counter() - t_phases:.1f} s")
 
 
+# ---- The last modules: utils, data CLIs, scale, examples (phases 63-68) ----
+# Phase 66 drives normalize_slide past the RAM-canvas threshold (K3 once per
+# batch of 128); phase 67 runs the demo's panels (K1, K2, K5, K7 through the
+# drop-in API) and the notebook's cells (K1, K3, K5, K7).
+SCALE_SIDE = 20480  # 1.17 GiB of level 0, 6,400 tiles of 256^2: a memmap
+SCALE_BATCH = 128
+INGEST = ("--container", "wsiraw", "--size", 8192, "--n", 256)
+# Demo panels, card against CPU (PERF.md section 2): index -> (kind, max u8)
+DEMO_PANELS = {0: ("equal", 0), 1: ("augmenter", 255), 2: ("augmenter", 255),
+               3: ("pop", 255), 4: ("normalizer", 2), 5: ("pop", 255),
+               6: ("normalizer", 4), 7: ("normalizer", 3),
+               8: ("augmenter", 255), 9: ("augmenter", 255),
+               10: ("augmenter", 255)}
+
+
+def _load_path(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def rest_phases(dev, smi, work: Path, big: str) -> dict:
+    """Phases 63-68: ``utils`` and ``config`` (63); the data CLIs:
+    ``torch_convert_wsi.py`` on the 16,384^2 slide of phase 41 (64) and
+    ``torch_bench_host_ingestion.py`` on WSIRAW (65); the reference-scale
+    drive ``torch_bench_wsi_scale.py`` at 20,480^2, its canvas a memmap, K3
+    once per batch (66); the augmentation demo's panels on the card against
+    the CPU and the walkthrough notebook's cells on the card (67); and
+    ``torch_launch_multihost.sh`` through torchrun at world 1 (68).
+    Returns the launches of phase 66 (``K3_scale``) and of the examples
+    (``<route>_example``)."""
+    from stainlib_tpu_torch import config
+    from stainlib_tpu_torch.data import native
+    from stainlib_tpu_torch.data.preprocessing import build_pyramid
+    from stainlib_tpu_torch.kernels import macenko_fused as mf
+    from stainlib_tpu_torch.kernels import reinhard_fused as rf
+    from stainlib_tpu_torch.kernels import vahadane_fused as vf
+    from stainlib_tpu_torch.models import train_flow as tf
+    from stainlib_tpu_torch.normalization import extractive
+    from stainlib_tpu_torch.normalization import slide as sl
+    from stainlib_tpu_torch.utils import checkpoint as ck
+    from stainlib_tpu_torch.utils import profiling
+    from stainlib_tpu_torch.utils.watchdog import StallWatchdog
+
+    root = Path(__file__).resolve().parent
+    t_phases = time.perf_counter()
+
+    def counts():
+        return dict(K1=mf.launches, K2=vf.launches, K3=mf.matrix_launches,
+                    K5=rf.launches, K7=mf.augment_launches)
+
+    def reset():
+        mf.launches = vf.launches = mf.matrix_launches = rf.launches = 0
+        mf.augment_launches = 0
+
+    # 63. utils and config on the card.
+    events = []
+    with StallWatchdog(timeout_s=0.3, poll_s=0.02,
+                       on_stall=events.append) as wd:
+        for _ in range(10):
+            wd.beat()
+            time.sleep(0.03)
+        quiet = wd.stall_count
+        time.sleep(0.6)
+    assert quiet == 0 and wd.stall_count == 1 and len(events) == 1, (
+        quiet, wd.stall_count, events)
+    batch = torch.from_numpy(tiles(64, SIDE, SEED + 63)).to(dev)
+    p = extractive.fit(torch.from_numpy(tiles(1, SIDE, SEED + 64)[0]).to(dev))
+    planar = mf.to_planar(batch).contiguous()
+
+    def k1():
+        return mf.macenko_normalize(batch, p.stain_matrix_target,
+                                    p.max_c_target, **FAST)
+
+    def k1_plain():
+        return mf.macenko_normalize_planar_ref(
+            planar, p.stain_matrix_target, p.max_c_target, **FAST)
+
+    (ka, kb), (pa, pb) = time_pair(k1, k1_plain)
+    # Each step's host-clock time covers its own CUDA-event time (the
+    # clock starts before the start event and stops after a synchronize
+    # that follows the end event); the p50 is reported beside time_pair's
+    # event time, a separate sample (they differ by some percent).
+    timer, step_ev = profiling.StepTimer(), []
+    for _ in range(REPS):
+        with timer.measure() as out:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out["result"] = {"tiles": k1(), "host": [np.zeros(1), None]}
+            end.record()
+        step_ev.append(start.elapsed_time(end))
+    p50_ms = timer.p50() * 1e3
+    assert all(t * 1e3 >= e for t, e in zip(timer.times, step_ev)), (
+        timer.times, step_ev)
+    # trace + annotate in this process: the region must be there; K1's
+    # kernel is reported (in this long process the Chrome export has come
+    # back without device kernels, three traces running, while a fresh
+    # process's holds them). The gate on the kernel is the card test's
+    # trace in a fresh process, run beside the launcher (phase 68).
+    trace_dir = work / "trace63"
+    before = mf.launches
+    with profiling.trace(str(trace_dir)):
+        time.sleep(0.05)  # margins inside the window, against clock skew
+        with profiling.annotate("chip_smoke_k1_region"):
+            for _ in range(3):  # a short trace can lose its first launch
+                k1()
+            torch.cuda.synchronize()
+        time.sleep(0.05)
+    assert mf.launches == before + 3, (before, mf.launches)
+    traces = sorted(trace_dir.glob("trace_*.json"))
+    assert len(traces) == 1, traces
+    text = traces[0].read_text()
+    assert "chip_smoke_k1_region" in text
+    in_trace = "macenko_apply_kernel" in text
+    cfg = config.Config()
+    assert cfg.flow.image_size == 32 and cfg.sampler.tile == 256
+    log(63, f"StallWatchdog: quiet under 10 beats 30 ms apart, one firing "
+            f"after {events[0]:.3f} s at a 0.3 s timeout; StepTimer around "
+            f"K1 (B=64 {SIDE}^2, host clock, a synchronize per step): p50 "
+            f"{p50_ms:.4f} ms, each of {REPS} steps at or above its own "
+            f"CUDA-event time (median {float(np.median(step_ev)):.4f} ms); "
+            f"time_pair: K1 {ka:.4f}, {kb:.4f} ms, plain {pa:.4f}, "
+            f"{pb:.4f} ms; trace + annotate around three K1 calls (3 "
+            f"launches counted): {traces[0].name}, "
+            f"{traces[0].stat().st_size:,} bytes, holds the region, "
+            f"macenko_apply_kernel {'present' if in_trace else 'absent'} "
+            f"(the fresh process's trace: phase 68); Config() builds; card "
+            f"'{smi}'")
+
+    # 64. The converter, a subprocess, WSIRAW -> WSIRAW with levels
+    # synthesized down to 512.
+    conv = work / "converted.wsiraw"
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "scripts/torch_convert_wsi.py", big,
+                        str(conv), "--min-dim", "512"], capture_output=True,
+                       text=True, timeout=300, cwd=root)
+    conv_s = time.perf_counter() - t0
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
+    s_in, s_out = native.open_slide(big), native.open_slide(str(conv))
+    want = [s_in.read_region(i, 0, 0, *s_in.level_size(i))
+            for i in range(s_in.num_levels)]
+    while min(want[-1].shape[:2]) >= 2 * 512:
+        want.append(build_pyramid(want[-1], 2)[1])
+    assert s_out.num_levels == len(want), (s_out.num_levels, len(want))
+    for i, w in enumerate(want):
+        got = s_out.read_region(i, 0, 0, *s_out.level_size(i))
+        assert np.array_equal(got, w), f"converted level {i} differs"
+    s_in.close(), s_out.close()
+    sizes = [f"{w.shape[1]}x{w.shape[0]}" for w in want]
+    del want, got
+    conv.unlink()
+    log(64, f"scripts/torch_convert_wsi.py {SLIDE_SIDE:,}^2 WSIRAW -> WSIRAW "
+            f"--min-dim 512 in {conv_s:.2f} s (a subprocess, start-up "
+            f"included): levels {sizes}, each equal byte for byte to the "
+            f"source's level or build_pyramid's")
+
+    # 65. Host decode rates of the WSIRAW reader (no libtiff here).
+    r = subprocess.run([sys.executable, "scripts/torch_bench_host_ingestion.py",
+                        *map(str, INGEST)], capture_output=True, text=True,
+                       timeout=300, cwd=root)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
+    ingest = json.loads(r.stdout.strip().splitlines()[-1])
+    assert ingest["container"] == "wsiraw" and len(ingest["by_threads"]) == 1
+    log(65, f"scripts/torch_bench_host_ingestion.py "
+            f"{' '.join(map(str, INGEST))}: {json.dumps(ingest)} (train path "
+            f"RawSlide.sample_tiles, eval path one read_region per tile; "
+            f"tiles/s on this host's {ingest['host_cores']} cores)")
+
+    # 66. The reference-scale drive: level 0 above the 1 GiB RAM-canvas
+    # threshold, so the canvas and the pyramid are disk memmaps.
+    scale = _load_path(root / "scripts" / "torch_bench_wsi_scale.py",
+                       "torch_bench_wsi_scale")
+    args = scale.parse_args([
+        "--container", "wsiraw", "--no-write", "--side", str(SCALE_SIDE),
+        "--batch", str(SCALE_BATCH), "--workdir", str(work / "scale"),
+        "--keep", "--device", dev.type])
+    reset()
+    summary, canvas = scale.drive(args)
+    torch.cuda.synchronize()
+    c66 = counts()
+    n_scale = (SCALE_SIDE // SIDE) ** 2
+    want_k3 = -(-n_scale // SCALE_BATCH)
+    assert summary["canvas"] == "memmap", summary
+    assert summary["tiles"] == n_scale and summary["fused"] is True, summary
+    assert summary["out_gb"] is None and summary["parts_s"]["write"] is None
+    assert c66 == dict(K1=0, K2=0, K3=want_k3, K5=0, K7=0), c66
+    src = str(work / "scale" / "scale_in.wsiraw")
+    slide_p = sl.fit_slide(src, device=dev)
+    tp = extractive.fit(torch.from_numpy(scale._target()).to(dev))
+    coords = sl._grid_coords(SCALE_SIDE, SCALE_SIDE, SIDE)
+    pick = np.random.default_rng(SEED + 66).choice(len(coords), 64,
+                                                   replace=False)
+    s = native.open_slide(src)
+    tl = torch.from_numpy(np.stack([s.read_region(0, *coords[i], SIDE, SIDE)
+                                    for i in pick])).to(dev)
+    s.close()
+    plain = mf.normalize_with_matrix_ref(tl, slide_p.stain_matrix,
+                                         slide_p.max_c, *tp).cpu().numpy()
+    func = extractive.transform_with_matrix(
+        tl, slide_p.stain_matrix, slide_p.max_c, tp).cpu().numpy()
+    got = np.stack([canvas[coords[i][1]:coords[i][1] + SIDE,
+                           coords[i][0]:coords[i][0] + SIDE] for i in pick])
+    assert np.array_equal(got, plain), "K3 on the scale slide differs"
+    d = np.abs(got.astype(np.int16) - func)
+    mx66, over66 = int(d.max()), float((d > 1).mean())
+    assert mx66 <= 3 and over66 < 5e-3, (mx66, over66)
+    del canvas, got, tl
+    (work / "scale" / "scale_in.wsiraw").unlink()
+    log(66, f"scripts/torch_bench_wsi_scale.py --container wsiraw --no-write "
+            f"--side {SCALE_SIDE} --batch {SCALE_BATCH} (in this process): "
+            f"{json.dumps(summary)}; K3 launches {c66['K3']} (= ceil("
+            f"{n_scale}/{SCALE_BATCH})), no other kernel; 64 canvas tiles "
+            f"drawn from a seed equal byte for byte to "
+            f"normalize_with_matrix_ref on the same tiles, vs the functional "
+            f"path max={mx66} u8, share>1={over66:.3e} (gate: max<=3, "
+            f"share>1<5e-3); the peak RSS is this process's, earlier phases "
+            f"included; card '{smi}'")
+
+    # 67. The examples: the demo's panels on the card against the CPU, then
+    # the notebook's code cells on the card.
+    demo = _load_path(root / "examples" / "torch_augmentation_demo.py",
+                      "torch_augmentation_demo")
+    reset()
+    card, titles = demo.build_panels(dev.type, 1)
+    torch.cuda.synchronize()
+    c_demo = counts()
+    assert c_demo == dict(K1=1, K2=1, K3=0, K5=1, K7=2), c_demo
+    cpu, _ = demo.build_panels("cpu", 1)
+    again, _ = demo.build_panels(dev.type, 1)
+    gaps = []
+    for i, (kind, mx) in DEMO_PANELS.items():
+        assert card[i].dtype == np.uint8 and card[i].shape == (224, 224, 3)
+        d = np.abs(card[i].astype(np.int16) - cpu[i])
+        if kind == "equal":
+            assert d.max() == 0, titles[i]
+        elif kind == "pop":
+            assert np.percentile(d, 99) <= 4, titles[i]
+        else:
+            assert d.max() <= mx and (d > 1).mean() < 1e-2, (
+                titles[i], int(d.max()), float((d > 1).mean()))
+        assert np.array_equal(card[i], again[i]), (titles[i], "runs differ")
+        gaps.append(f"{titles[i]} {int(d.max())}/{float((d > 1).mean()):.1e}")
+    log(67, f"build_panels('{dev.type}', 1) vs build_panels('cpu', 1), 11 panels "
+            f"of 224^2: max u8 / share>1 per panel: {'; '.join(gaps)} "
+            f"(gates: normalizers max K1 2, K2 4, K5 3 and share>1<1e-2; "
+            f"augmenters share>1<1e-2; pops 99th pct<=4); two card runs "
+            f"identical; launches {c_demo}")
+    import tempfile
+
+    from stainlib_tpu_torch.utils import plot
+
+    nb = json.loads((root / "examples"
+                     / "stainlib_tpu_torch_walkthrough.ipynb").read_text())
+    cells = ["".join(c["source"]) for c in nb["cells"]
+             if c["cell_type"] == "code"]
+    assert cells[0].startswith('DEVICE = "cuda"')
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    real_plot, real_tmp = plot.plot_image_grid, tempfile.tempdir
+    if has_mpl:
+        import matplotlib
+
+        matplotlib.use("Agg")
+    else:  # the cells' figures are not drawn; everything else runs
+        plot.plot_image_grid = lambda *a, **k: None
+    (work / "notebook").mkdir()
+    tempfile.tempdir = str(work / "notebook")
+    reset()
+    ns = {}
+    t0 = time.perf_counter()
+    try:
+        for src in cells:
+            src = src.replace('DEVICE = "cuda"', f'DEVICE = "{dev.type}"')
+            exec(compile(src, "stainlib_tpu_torch_walkthrough.ipynb",
+                         "exec"), ns)
+        torch.cuda.synchronize()
+    finally:
+        plot.plot_image_grid, tempfile.tempdir = real_plot, real_tmp
+        if has_mpl:
+            import matplotlib.pyplot as plt
+
+            plt.close("all")
+    nb_s = time.perf_counter() - t0
+    c_nb = counts()
+    assert ns["normalized_batch"].device.type == dev.type
+    assert ns["out_lv0"].shape == (512, 512, 3)
+    assert c_nb["K1"] >= 2 and c_nb["K5"] == 1 and c_nb["K7"] == 2, c_nb
+    assert c_nb["K3"] == 1, c_nb  # the slide cell: one batch of 4 tiles
+    example = {k: c_demo[k] + c_nb[k] for k in c_demo}
+    log(67, f"the notebook's {len(cells)} code cells on the card with "
+            f"DEVICE = 'cuda' in {nb_s:.2f} s: launches {c_nb}; "
+            + ("matplotlib drew the figures" if has_mpl else
+               "matplotlib is not on this host: plot_image_grid is not run "
+               "here (the CPU tests run it)")
+            + ("" if native.tiff_native_available() else
+               "; this host has no libtiff: the whole-slide cell does not "
+               "write the TIFF and runs the slide's tiles through K3 "
+               "directly"))
+
+    # 68. The launcher: torchrun, NCCL at world 1, two steps, a checkpoint
+    # that the port restores. Beside it, phase 63's card test in a fresh
+    # process: its trace of K1 must hold the region and the kernel.
+    env = dict(os.environ, GPUS_PER_HOST="1", STEPS="2",
+               PYTHON=sys.executable)
+    save = work / "launch_ckpt"
+    cmds = {"launch": (["bash", "scripts/torch_launch_multihost.sh",
+                        "--image-size", "32", "--batch", "8", "--device",
+                        dev.type, "--save", str(save)], env),
+            "utils": ([sys.executable, "-m", "pytest", "--noconftest", "-q",
+                       "-m", "cuda", "-p", "no:cacheprovider",
+                       "tests/test_torch_utils_cuda.py"], None)}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(c, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True, cwd=root,
+                                 env=e) for k, (c, e) in cmds.items()}
+    outs, secs = {}, {}
+    try:
+        for k, p in procs.items():
+            out, err = p.communicate(timeout=300)
+            secs[k] = time.perf_counter() - t0
+            outs[k] = out + err
+            assert p.returncode == 0, (k, out[-3000:] + err[-3000:])
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    launch_s = secs["launch"]
+    summary = [ln for ln in outs["utils"].splitlines()
+               if " passed" in ln or " skipped" in ln][-1]
+    assert dev.type != "cuda" or "3 passed" in summary, summary
+    log(63, f"tests/test_torch_utils_cuda.py in a fresh process (beside "
+            f"the launcher, {secs['utils']:.1f} s; its trace of K1 holds "
+            f"the region and macenko_apply_kernel): {summary.strip()}")
+    text = outs["launch"]
+    assert f"device {dev.type}" in text and "world 1" in text, text[-2000:]
+    _, _, template, _ = tf.init_flow_state(tf.FlowConfig(image_size=32), 0,
+                                           device=dev)
+    restored = ck.restore_checkpoint(str(save), template)
+    assert restored.step == 2
+    assert all(bool(torch.isfinite(v).all())
+               for v in restored.params["flow"].values())
+    log(68, f"GPUS_PER_HOST=1 STEPS=2 scripts/torch_launch_multihost.sh "
+            f"--image-size 32 --batch 8 --device cuda: torchrun, NCCL at "
+            f"world 1, exit 0 in {launch_s:.1f} s; its checkpoint restores "
+            f"into a card template at step 2, finite")
+    log(68, f"phases 63-68 took {time.perf_counter() - t_phases:.1f} s")
+    launches = {"K3_scale": c66["K3"]}
+    launches.update({f"{k}_example": v for k, v in example.items() if v})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to PyTorch", file=sys.stderr)
@@ -3161,15 +3532,20 @@ def run(dev) -> int:
     # Phases 48-51 (the flow + GMM model and its trainer) run on the
     # slide phases' work directory: phase 51 trains on its slide.
     slide_launches = slide_phases(dev, smi, then=flow_phases)
+    routes = {r[2]: name for name, r in SLIDE_ROUTES.items()}
+    routes["augment_with_matrix_planar"] = "K7"  # the examples' pops
     for k in kernels:
-        route = {r[2]: name for name, r in SLIDE_ROUTES.items()}.get(k["name"])
-        if route is not None:
+        route = routes.get(k["name"])
+        if route is None:
+            continue
+        if route in slide_launches:
             k["slide_launches"] = slide_launches[route]
-            # This slice's paths (phases 45-47): sharded normalize, the
-            # training-tile stream, normalize_slide over a mesh.
-            for path in ("sharded", "stream", "mesh_slide"):
-                if f"{route}_{path}" in slide_launches:
-                    k[f"{path}_launches"] = slide_launches[f"{route}_{path}"]
+        # The paths of phases 45-47 (sharded normalize, the training-tile
+        # stream, normalize_slide over a mesh) and 66-67 (the scale drive,
+        # the demo and the notebook).
+        for path in ("sharded", "stream", "mesh_slide", "scale", "example"):
+            if f"{route}_{path}" in slide_launches:
+                k[f"{path}_launches"] = slide_launches[f"{route}_{path}"]
 
     # Each kernel's bound at the shapes of its timed call, with the tissue
     # share of these inputs (the masked passes count tissue pixels only).
@@ -3196,7 +3572,7 @@ def run(dev) -> int:
         k.update(bound(*shapes[k["name"]]), library_ms=None)
     assert len(kernels) == 10, [k["name"] for k in kernels]
 
-    log(62, f"the whole run, phases 1-62: "
+    log(68, f"the whole run, phases 1-68: "
             f"{time.perf_counter() - t_run:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,6 +7,7 @@ Pallas kernel in interpret mode (at most 1 uint8 step apart, at least
 itself is tested in ``test_torch_macenko_cuda.py``.
 """
 
+import json
 import os
 import re
 import subprocess
@@ -118,6 +119,9 @@ def test_import_needs_no_jax_and_builds_nothing():
             "    validate_flow, sampling, toy, segmentation, dann,\n"
             "    backbones, evaluation, train_dann)\n"
             "from stainlib_tpu_torch.utils import checkpoint, ema, meters\n"
+            "from stainlib_tpu_torch.utils import profiling, watchdog, plot\n"
+            "from stainlib_tpu_torch import config\n"
+            "config.Config()\n"
             "from stainlib_tpu_torch.data import synthetic, generators\n"
             "runpy.run_path('tests/_torch_mp_worker.py')\n"
             "runpy.run_path('scripts/torch_dryrun_multichip.py')\n"
@@ -130,6 +134,16 @@ def test_import_needs_no_jax_and_builds_nothing():
             "        main(['--help'])\n"
             "    except SystemExit as e:\n"
             "        assert e.code == 0, cli\n"
+            "for path in ('scripts/torch_convert_wsi.py',\n"
+            "             'scripts/torch_bench_host_ingestion.py',\n"
+            "             'scripts/torch_bench_wsi_scale.py',\n"
+            "             'examples/torch_augmentation_demo.py'):\n"
+            "    main = runpy.run_path(path)['main']\n"
+            "    try:\n"
+            "        main(['--help'])\n"
+            "    except SystemExit as e:\n"
+            "        assert e.code == 0, path\n"
+            "assert 'matplotlib' not in sys.modules\n"
             "for name in ('jax', 'flax', 'optax', 'sklearn',\n"
             "             'stainlib_tpu'):\n"
             "    assert name not in sys.modules, name\n"
@@ -144,6 +158,15 @@ def test_import_needs_no_jax_and_builds_nothing():
         r"^\s*(import|from) (jax|flax|optax|sklearn|stainlib_tpu)\b", re.M)
     sources = [*(ROOT / "stainlib_tpu_torch").rglob("*.py"),
                *(ROOT / "scripts").glob("torch_*.py"),
+               *(ROOT / "examples").glob("torch_*.py"),
                ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_mp_worker.py"]
     for src in sources:
         assert not pattern.search(src.read_text()), src
+    notebook = json.loads(
+        (ROOT / "examples" / "stainlib_tpu_torch_walkthrough.ipynb")
+        .read_text())
+    for cell in notebook["cells"]:
+        if cell["cell_type"] == "code":
+            assert not pattern.search("".join(cell["source"])), cell
+    launcher = (ROOT / "scripts" / "torch_launch_multihost.sh").read_text()
+    assert "torch_train_flow.py" in launcher and "jax" not in launcher
