@@ -22,6 +22,9 @@ process group over a ``file://`` store in a temporary directory
 Each rank checks its shapes, types and finiteness; the gathered results
 must be the same on every rank. It prints ``DRYRUN_OK world=N`` and exits 0
 when every rank passed.
+
+``entry(device="cuda")`` is the twin of ``__graft_entry__.entry``: the
+one-card compile check's ``(fn, example_args)``.
 """
 
 from __future__ import annotations
@@ -45,6 +48,29 @@ def _make_tiles(n, h, w, seed=0):
     C = rng.random((n, h, w, 2)) * 1.5
     img = 255.0 * np.exp(-(C @ he))
     return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def entry(device="cuda"):
+    """(fn, example_args) for a one-card compile check
+    (``__graft_entry__.entry``'s twin): ``fn(params, batch)`` is the port's
+    functional Macenko ``extractive.transform`` of 4 tiles of 64x64 toward
+    ``extractive.fit`` of one 64x64 target. The arguments live on
+    ``device``; without a CUDA device, ``"cuda"`` raises."""
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from stainlib_tpu_torch.api import _device
+    from stainlib_tpu_torch.normalization import extractive
+
+    dev = _device(device)
+    target = torch.from_numpy(_make_tiles(1, 64, 64, seed=1)[0]).to(dev)
+    params = extractive.fit(target, method="macenko")
+    batch = torch.from_numpy(_make_tiles(4, 64, 64, seed=2)).to(dev)
+
+    def fn(params, batch):
+        return extractive.transform(params, batch, method="macenko")
+
+    return fn, (params, batch)
 
 
 def rank_main(rank: int, world: int, store: str) -> None:

@@ -7,7 +7,9 @@
   on the port's copy.
 * ``StepTimer``: CPU tensors and pytree results; ``p50`` equal to JAX's on
   the same recorded times.
-* ``trace`` + ``annotate``: a Chrome trace file that holds the region.
+* ``trace`` + ``annotate``: a Chrome trace file that holds the region;
+  the count of kernel launches without a device kernel, on which ``trace``
+  raises on a card.
 * ``plot_image_grid``: the PNG bytes equal JAX's on the same numpy images,
   and equal again when the images come as torch tensors.
 """
@@ -126,6 +128,28 @@ def test_trace_writes_the_annotation(tmp_path):
     with profiling.trace(str(tmp_path)):  # a second trace, a second file
         torch.ones(2).sum()
     assert len(glob.glob(str(tmp_path / "trace_*.json"))) == 2
+
+
+def _launch(corr, name="cudaLaunchKernel"):
+    return {"cat": "cuda_runtime", "name": name, "args": {"correlation": corr}}
+
+
+def _kernel(corr):
+    return {"cat": "kernel", "name": "k", "args": {"correlation": corr}}
+
+
+@pytest.mark.parametrize("events,lost", [
+    ([_launch(1), _kernel(1), _launch(2, "cudaLaunchKernelExC"), _kernel(2)],
+     0),
+    ([_launch(1), _launch(2, "cudaLaunchKernelExC"), _kernel(2)], 1),
+    ([_launch(3), _launch(4)], 2),
+    ([_launch(5, "cudaMemcpyAsync"), {"cat": "cpu_op", "name": "aten::add"},
+      _kernel(6)], 0),
+])
+def test_trace_counts_launches_without_kernels(events, lost):
+    """``trace`` raises on a Chrome trace where a kernel launch (a CUDA
+    runtime launch event) has no device kernel of its correlation id."""
+    assert profiling.lost_device_records(events) == lost
 
 
 def test_plot_image_grid_png_equals_jax(tmp_path):
