@@ -22,6 +22,8 @@ from pathlib import Path
 
 import torch
 
+from stainlib_tpu_torch.utils.profiling import launch_span
+
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
@@ -203,7 +205,13 @@ def error_string(err: int) -> str:
 def launch(name: str, device: torch.device, *args) -> None:
     """Call entry point ``name`` on ``device`` with ``args`` (everything
     between the device and the stream) on the device's current stream;
-    raise if the launch is refused."""
+    raise if the launch is refused. Inside a kernel entry that a recording
+    profiler traces (``utils.profiling.kernel_entry``), the call runs in
+    the entry's launch span."""
+    span = launch_span()
+    if span is not None:  # handed out once: the call below runs untraced
+        with span:
+            return launch(name, device, *args)
     fn = getattr(load_library(), name)
     current = torch.cuda.current_device()
     index = current if device.index is None else device.index

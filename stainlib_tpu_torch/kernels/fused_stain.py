@@ -43,6 +43,8 @@ import functools
 import numpy as np
 import torch
 
+from stainlib_tpu_torch.utils.profiling import kernel_entry
+
 LANES = 128
 BIG = 3.4e38
 
@@ -332,6 +334,7 @@ def fused_normalize_ref(rgb, stain_matrix_src, stain_matrix_tgt,
     return from_planar(out, H, W)
 
 
+@kernel_entry("K9")
 def _launch(x, planar: bool, stain_matrix_src, stain_matrix_tgt,
             max_c_target, q: float = 99.0, regularizer: float = 0.01,
             g: int | None = None):

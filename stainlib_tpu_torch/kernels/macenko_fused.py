@@ -101,6 +101,7 @@ from stainlib_tpu_torch.kernels.fused_stain import (
 )
 from stainlib_tpu_torch.ops.fdiv import fdiv
 from stainlib_tpu_torch.ops.linalg3 import eigh3x3
+from stainlib_tpu_torch.utils.profiling import kernel_entry
 
 # Kernel launches since import (or since a caller reset it).
 launches = 0
@@ -580,6 +581,7 @@ def macenko_normalize_ref(rgb, stain_matrix_tgt, max_c_target, **kw):
 # ---------------------------------------------------------------------------
 
 
+@kernel_entry("K1")
 def _launch(x, planar: bool, stain_matrix_tgt, max_c_target,
             luminosity_threshold: float = 0.8,
             angular_percentile: float = 99.0, q_conc: float = 99.0,
@@ -672,6 +674,7 @@ def macenko_fit_planar_ref(rgb_planar, luminosity_threshold: float = 0.8,
             torch.stack(maxc, -1))
 
 
+@kernel_entry("K4")
 def _fit_launch(rgb_planar, luminosity_threshold: float = 0.8,
                 angular_percentile: float = 99.0, q_conc: float = 99.0,
                 regularizer: float = 0.01, n_bisect: int = 14,
@@ -742,6 +745,7 @@ def eigenplane_ref(rgb_planar, luminosity_threshold: float = 0.8):
         torch.stack(_masked_moments(od0, od1, od2, mask), dim=1))
 
 
+@kernel_entry("K10")
 def _eigen_launch(rgb_planar, luminosity_threshold: float = 0.8,
                   g: int | None = None):
     """K10 on CUDA tiles at :func:`eigenplane_plan`'s G (``g`` forces it)."""
@@ -843,6 +847,7 @@ def _matrix_args(stain_matrix_src, max_c_src, stain_matrix_tgt, max_c_tgt,
             _pointer_arg(max_c_tgt, 2, batch, device))
 
 
+@kernel_entry("K3")
 def _matrix_launch(x, planar: bool, stain_matrix_src, max_c_src,
                    stain_matrix_tgt, max_c_tgt, regularizer: float):
     global matrix_launches
@@ -964,6 +969,7 @@ def macenko_augment_ref(rgb, alpha, beta, **kw):
                                                   beta, **kw), H, W)
 
 
+@kernel_entry("K6")
 def _aug_launch(x, planar: bool, alpha, beta,
                 luminosity_threshold: float = 0.8,
                 angular_percentile: float = 99.0, regularizer: float = 0.01,
@@ -1075,6 +1081,7 @@ def _augment_args(stain_matrix, alpha, beta, batch, device):
             _pointer_arg(beta, 2, batch, device))
 
 
+@kernel_entry("K7")
 def _augment_launch(x, planar: bool, stain_matrix, alpha, beta,
                     luminosity_threshold: float, regularizer: float,
                     augment_background: bool):

@@ -56,6 +56,7 @@ from stainlib_tpu_torch.kernels.fused_stain import (
 )
 from stainlib_tpu_torch.kernels.macenko_fused import CLUSTER_SIZES, sm_count
 from stainlib_tpu_torch.ops.fdiv import fdiv
+from stainlib_tpu_torch.utils.profiling import kernel_entry
 
 # Kernel launches since import (or since a caller reset it).
 launches = 0
@@ -266,6 +267,7 @@ def _block_slots(device) -> int:
     return sm_count(device) * _BLOCKS_PER_SM
 
 
+@kernel_entry("K5")
 def _launch(x, planar: bool, target_means, target_stds,
             brightness_q: float = 90.0, g: int | None = None):
     """K5 on CUDA tiles at :func:`reinhard_plan`'s G (``g`` forces it)."""

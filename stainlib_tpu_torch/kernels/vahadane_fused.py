@@ -81,6 +81,7 @@ from stainlib_tpu_torch.kernels.macenko_fused import (
     stage_scratch,
 )
 from stainlib_tpu_torch.ops.dictlearn import _HE_INIT
+from stainlib_tpu_torch.utils.profiling import kernel_entry
 
 # Kernel launches since import (or since a caller reset them).
 launches = 0  # vahadane_normalize kernel
@@ -229,6 +230,7 @@ def vahadane_stain_matrix_planar_ref(rgb_planar, **kw):
 # ---------------------------------------------------------------------------
 
 
+@kernel_entry("K2")
 def _launch(x, planar: bool, stain_matrix_tgt, max_c_target,
             regularizer_fit: float = 0.1, regularizer: float = 0.01,
             num_iters: int = 12, luminosity_threshold: float = 0.8,
@@ -301,6 +303,7 @@ def vahadane_normalize(rgb, stain_matrix_tgt, max_c_target, **kw):
     return _launch(rgb, False, stain_matrix_tgt, max_c_target, **kw)
 
 
+@kernel_entry("K8")
 def _dict_launch(rgb_planar, regularizer: float = 0.1, num_iters: int = 12,
                  luminosity_threshold: float = 0.8, n_bisect: int = 14,
                  fit_stride: int = 1, g: int | None = None):

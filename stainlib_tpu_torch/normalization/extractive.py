@@ -34,6 +34,7 @@ from stainlib_tpu_torch.ops.colorspace import to_uint8
 from stainlib_tpu_torch.ops.fdiv import f64
 from stainlib_tpu_torch.ops.lasso import get_concentrations
 from stainlib_tpu_torch.ops.percentile import percentile
+from stainlib_tpu_torch.utils.profiling import annotate
 
 _EXTRACTORS = {
     "macenko": stain_matrix_macenko,
@@ -58,11 +59,19 @@ def check_method(method: str) -> str:
 
 def fit(target_rgb, method: str = "macenko", regularizer: float = 0.01,
         **extractor_kwargs) -> ExtractiveParams:
-    """Fit to a target image (..., H, W, 3); ``normalizer.py:27-37``."""
-    M = _EXTRACTORS[check_method(method)](target_rgb, **extractor_kwargs)
-    C = get_concentrations(target_rgb, M, regularizer)
-    C = C.reshape(C.shape[:-3] + (-1, 2))
-    max_c = percentile(C, 99.0, axis=-2)
+    """Fit to a target image (..., H, W, 3); ``normalizer.py:27-37``.
+    Traced (``utils.profiling.annotate``) as ``stain.fit`` around
+    ``stain.fit.matrix``, ``stain.fit.concentrations`` and
+    ``stain.fit.max_c``."""
+    with annotate("stain.fit"):
+        with annotate("stain.fit.matrix"):
+            M = _EXTRACTORS[check_method(method)](target_rgb,
+                                                  **extractor_kwargs)
+        with annotate("stain.fit.concentrations"):
+            C = get_concentrations(target_rgb, M, regularizer)
+            C = C.reshape(C.shape[:-3] + (-1, 2))
+        with annotate("stain.fit.max_c"):
+            max_c = percentile(C, 99.0, axis=-2)
     return ExtractiveParams(stain_matrix_target=M, max_c_target=max_c)
 
 

@@ -6,18 +6,31 @@ here the same counters exist (:mod:`stainlib_tpu_torch.utils.meters`) plus
 device traces: ``trace`` records the host and, where a CUDA device is
 present, the card's kernels and copies, and writes a Chrome trace (view it
 in Perfetto or ``chrome://tracing``).
+
+The port's own spans (``annotate``, ``kernel_entry``) exist only while a
+torch profiler session records (:func:`recording`): ``trace``, any
+caller's own ``torch.profiler.profile``. They are record functions of that
+session, on the clock of its device records. With no session recording, a
+span costs one read of torch's flag. ``annotate`` makes a
+``record_function`` (a ``user_annotation`` event of the Chrome trace).
+``kernel_entry``, whose spans wrap every kernel call, makes torch's fast
+record functions (``cpu_op`` events), which cost a tenth as much under a
+recording profiler, so a traced entry stays close to an untraced one.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import re
+import threading
 import time
 from typing import Iterator, Optional
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
 from torch.profiler import ProfilerActivity, profile, record_function, schedule
 from torch.utils._pytree import tree_leaves
 
@@ -35,6 +48,15 @@ WARM_LAUNCHES = 1024
 # the window.
 MARGIN_S = 0.05
 _LAUNCH = re.compile(r"^cuda(LaunchKernel|LaunchCooperativeKernel)")
+_autograd_profiler = torch.autograd.profiler
+
+
+def recording() -> bool:
+    """Whether a torch profiler session is recording: the gate of every
+    span of the port. A read of torch's own flag, which its profiler sets
+    when a session starts recording and clears when it stops; false in a
+    scheduled session's wait and warm-up steps."""
+    return _autograd_profiler._is_profiler_enabled
 
 
 def lost_device_records(events) -> int:
@@ -98,9 +120,69 @@ def trace(log_dir: str) -> Iterator[None]:
 
 @contextlib.contextmanager
 def annotate(name: str) -> Iterator[None]:
-    """Named region inside a trace (``record_function``)."""
+    """Named region inside a trace (``record_function``), made only while a
+    profiler session records (:func:`recording`); for cold paths, since
+    the context manager itself costs a little even when off."""
+    if not recording():
+        yield
+        return
     with record_function(name):
         yield
+
+
+class _Entry(threading.local):
+    """The kernel entry that a recording profiler traces on this thread,
+    until it launches: the name of its span, and its open prep span."""
+
+    span: Optional[str] = None
+    prep = None
+
+
+_entry = _Entry()
+
+
+def kernel_entry(kernel: str):
+    """Decorator of kernel ``kernel``'s launch-level wrapper: the code
+    between the public entry's checks and its return, which launches
+    through ``kernels._build.launch``.
+
+    While a profiler session records, a call runs inside the span
+    ``stain.<kernel>``, its work up to the launch inside
+    ``stain.<kernel>.prep`` and the launch itself inside
+    ``stain.<kernel>.launch`` (:func:`launch_span`). Otherwise the wrapper
+    runs as it is after one read of the gate: no span object, no profiler
+    call."""
+    span = f"stain.{kernel}"
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def entry(*args, **kw):
+            if not recording():
+                return fn(*args, **kw)
+            with _RecordFunctionFast(span):
+                _entry.span = span
+                _entry.prep = _RecordFunctionFast(span + ".prep")
+                _entry.prep.__enter__()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    if _entry.prep is not None:  # no launch was reached
+                        _entry.prep.__exit__(None, None, None)
+                    _entry.span = _entry.prep = None
+        return entry
+    return wrap
+
+
+def launch_span():
+    """The span ``stain.<kernel>.launch`` of the kernel entry traced on
+    this thread, to enter around its launch (``kernels._build.launch``),
+    with its prep span closed; handed out once per entry, and None outside
+    a traced kernel entry."""
+    if _entry.span is None:
+        return None
+    _entry.prep.__exit__(None, None, None)
+    span, _entry.span, _entry.prep = _entry.span, None, None
+    return _RecordFunctionFast(span + ".launch")
 
 
 class StepTimer:
