@@ -48,7 +48,8 @@ _ARGTYPES = {
         _i32, _i32, _i32,  # nblk, blk, stp
         _f32, _f32, _f32, _f32, _f32,  # y_thr, lam, q_lo, q_hi, q_conc
         _i32, _i32,  # it_angle, it_conc
-        _i32, _i32, _i32, _ptr,  # G, slice, smem bytes, scratch
+        _i32, _i32, _i32, _i32, _ptr,  # G, slice, smem bytes, levels,
+        #                                scratch
         _ptr],  # stream
     "vahadane_normalize_launch": [
         _i32, _ptr, _ptr, _ptr, _ptr,  # device, in, out, scal, luts
@@ -57,7 +58,8 @@ _ARGTYPES = {
         _f32, _f32, _f32, _f32, _f32, _f32,  # y_thr, lam_fit, lam, q_lo,
         #                                      q_hi, q_conc
         _i32, _i32, _i32,  # num_iters, it_angle, it_conc
-        _i32, _i32, _i32, _ptr,  # G, slice, smem bytes, scratch
+        _i32, _i32, _i32, _i32, _ptr,  # G, slice, smem bytes, levels,
+        #                                scratch
         _ptr],  # stream
     "vahadane_dict_launch": [
         _i32, _ptr, _ptr, _ptr,  # device, in, out, luts
@@ -65,7 +67,8 @@ _ARGTYPES = {
         _i32, _i32, _i32,  # nblk, blk, stp
         _f32, _f32, _f32, _f32,  # y_thr, lam_fit, q_lo, q_hi
         _i32, _i32,  # num_iters, it_angle
-        _i32, _i32, _i32, _ptr,  # G, slice, smem bytes, scratch
+        _i32, _i32, _i32, _i32, _ptr,  # G, slice, smem bytes, levels,
+        #                                scratch
         _ptr],  # stream
     "fused_normalize_launch": [
         _i32, _ptr, _ptr,  # device, in, out
@@ -74,14 +77,16 @@ _ARGTYPES = {
         #                                      and a per-tile stride
         _ptr, _i32, _i32, _i32, _i32,  # lut, batch, n_pix, pix/ch stride
         _f32, _f32, _i32,  # lam, q, iters
-        _i32, _i32, _i32, _ptr,  # G, slice, smem bytes, scratch
+        _i32, _i32, _i32, _i32, _ptr,  # G, slice, smem bytes, levels,
+        #                                scratch
         _ptr],  # stream
     "macenko_fit_launch": [
         _i32, _ptr, _ptr, _ptr,  # device, in, out, luts
         _i32, _i32, _i32, _i32,  # batch, n_pix, pix/ch stride
         _f32, _f32, _f32, _f32, _f32,  # y_thr, lam, q_lo, q_hi, q_conc
         _i32, _i32,  # it_angle, it_conc
-        _i32, _i32, _i32, _ptr,  # G, slice, smem bytes, scratch
+        _i32, _i32, _i32, _i32, _ptr,  # G, slice, smem bytes, levels,
+        #                                scratch
         _ptr],  # stream
     "eigenplane_launch": [
         _i32, _ptr, _ptr, _ptr,  # device, in, out, luts
@@ -100,7 +105,8 @@ _ARGTYPES = {
         _ptr, _i32, _i32, _i32, _i32,  # luts, batch, n_pix, pix/ch stride
         _f32, _f32, _i32,  # y_thr, lam, background flag
         _f32, _f32, _i32,  # q_lo, q_hi, it_angle
-        _i32, _i32, _i32, _ptr,  # G, slice, smem bytes, scratch
+        _i32, _i32, _i32, _i32, _ptr,  # G, slice, smem bytes, levels,
+        #                                scratch
         _ptr],  # stream
     "augment_apply_launch": [
         _i32, _ptr, _ptr,  # device, in, out

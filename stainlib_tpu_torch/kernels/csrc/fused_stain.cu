@@ -6,34 +6,32 @@
 // tile's given source stain rows:
 //   1. the exact K=2 lasso of every pixel's OD (_od_lasso) and the two
 //      q-th percentile concentrations over every pixel, by count bisection
-//      (14 rounds) with the exact successor recovery;
+//      (14 rounds) and the exact successor;
 //   2. rescale by maxC_target / maxC, 255*exp(-C M_tgt), clip, truncate to
 //      uint8 on every pixel.
-// The OD table holds _od_lasso's expression, -log(max(u, 1) * (1/255)),
-// which differs from the other kernels' _od_and_mask OD in the last bit for
-// 100 of the 256 byte values. K9 has no tissue mask, so its table is that
-// one row.
-// Bound: work per pixel, not bytes (2 x 196 KB per 256^2 tile): a lasso
-// per pixel, 14 bisection rounds and a successor recovery over two values
-// per pixel, three expf per pixel. Design: one thread-block cluster of G
-// blocks of 512 threads per tile, G from macenko_fused.cluster_plan's batch
-// rule (one image spreads over 16 SMs; 256 tiles take two blocks each,
-// staged in device memory). The tile is read from device memory once: its
-// 512-pixel chunks are dealt to the blocks in turns, and each pixel's lasso
-// (its divisions through the Gram terms' kept reciprocals,
-// stain::lasso2_by) is staged as two concentrations (stain::Staged, in
-// shared memory or a device-memory scratch buffer), so every bisection
-// round is a compare against staged values, three rounds per reduction
-// (stain::staged_conc_percentiles): a chain of 7 dependent reductions (the
-// max, five for the rounds, the successor). Since the sample is the whole
-// tile, the apply takes each pixel's staged concentrations, not its bytes:
-// the rescale and 255*exp(-C M_tgt), a byte store per channel (consecutive
-// threads, consecutive pixels). Against an apply that reads the bytes again
-// 8 pixels per thread (stain::map_image, K1's) and takes a second lasso, it
-// measured the same at 256 tiles and 6-8% faster for one image and 16 tiles
-// of 512^2 (PERF.md, section 6). The per-tile source rows, the target rows
-// and maxC_target arrive by pointer and stride (0: shared by all tiles), the
-// regularizer by value. Reductions fold in a fixed order, so the output is
+// The OD table holds _od_lasso's expression, -log(max(u, 1) * (1/255)), which
+// differs from the other kernels' _od_and_mask OD in the last bit for 100 of
+// the 256 byte values. K9 has no tissue mask, so its table is that one row.
+// Bound: work per pixel, not bytes (2 x 196 KB per 256^2 tile): a lasso per
+// pixel, 14 bisection rounds over two values per pixel, three expf per pixel.
+// Design: one thread-block cluster of G blocks of 512 threads per tile, G from
+// macenko_fused.cluster_plan's batch rule (one image spreads over 16 SMs; 256
+// tiles take two blocks each, staged in device memory). The tile is read from
+// device memory once: its 512-pixel chunks are dealt to the blocks in turns,
+// and each pixel's lasso (its divisions through the Gram terms' kept
+// reciprocals, stain::lasso2_by) is staged as two concentrations
+// (stain::Staged, in shared memory or a device-memory scratch buffer), so the
+// bisection bins staged values into leaf histograms, up to eight rounds and the
+// successor per reduction (stain::staged_conc_percentiles): a chain of 3
+// dependent reductions (the max, two passes of seven rounds). Since the sample
+// is the whole tile, the apply takes each pixel's staged concentrations, not
+// its bytes: the rescale and 255*exp(-C M_tgt), a byte store per channel
+// (consecutive threads, consecutive pixels). Against an apply that reads the
+// bytes again 8 pixels per thread (stain::map_image, K1's) and takes a second
+// lasso, it measured the same at 256 tiles and 6-8% faster for one image and 16
+// tiles of 512^2 (PERF.md, section 6). The per-tile source rows, the target
+// rows and maxC_target arrive by pointer and stride (0: shared by all tiles),
+// the regularizer by value. Reductions fold in a fixed order, so the output is
 // bit-reproducible and the same at every G.
 
 #include <cuda_runtime.h>
@@ -60,6 +58,7 @@ struct Args {
   float lam, q;
   int iters;
   int slice;       // sample pixels staged per block
+  int levels;      // the most bisection rounds per reduction
   float* scratch;  // the blocks' stages in device memory, or nullptr
 };
 
@@ -69,7 +68,7 @@ struct ClusterShared {
   double dbuf[4 * kWarps];
   float lut[1][256];
   float fbuf[2 * kWarps];
-  int ibuf[14 * kWarps];
+  uint32_t hist[stain::hist_words(stain::kStaticLevels)];
   float res[8];
   stain::ClusterSlots cs;
 };
@@ -123,6 +122,7 @@ __global__ void __launch_bounds__(kThreads, 2) fused_normalize_kernel(Args a) {
       px[ch * a.ch_stride] = (uint8_t)stain::u8_trunc(
           255.0f * expf(-(c1s * as.tgt[ch] + c2s * as.tgt[3 + ch])));
   });
+  stain::staged_end(s);
 }
 
 }  // namespace
@@ -137,8 +137,8 @@ extern "C" cudaError_t fused_normalize_launch(
     int device, const void* in, void* out, const void* rows, int rows_stride,
     const void* tgt, int tgt_stride, const void* mct, int mct_stride,
     const void* lut, int batch, int n_pix, int pix_stride, int ch_stride,
-    float lam, float q, int iters, int G, int slice, int smem, void* scratch,
-    void* stream) {
+    float lam, float q, int iters, int G, int slice, int smem, int levels,
+    void* scratch, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (batch == 0) return cudaSuccess;
@@ -164,6 +164,7 @@ extern "C" cudaError_t fused_normalize_launch(
   a.q = q;
   a.iters = iters;
   a.slice = slice;
+  a.levels = levels;
   a.scratch = static_cast<float*>(scratch);
   return stain::launch_cluster<fused_normalize_kernel>(
       a, device, batch, G, kThreads, smem, static_cast<cudaStream_t>(stream));

@@ -8,25 +8,28 @@
 // kernels/macenko_fused.py:413-490, :541-608). Per tile:
 //   1. ten masked OD moments over the estimation sample;
 //   2. the eigenplane (scalar Newton eigh, one thread, broadcast);
-//   3. the two masked angular percentiles by count bisection, then the
-//      exact successor recovery;
+//   3. the two masked angular percentiles by count bisection and the exact
+//      successor;
 //   4. stain rows, the exact K=2 lasso, and the two 99th-percentile
 //      concentration searches over the sample (unmasked);
 //   5. rescale, 255*exp(-od), clip, truncate to uint8 for every pixel.
 // Bound: not bytes (2 x 196 KB per 256^2 tile) but work per pixel and the
-// chain of dependent reductions: phases 1-4 are 25 passes over the sample
-// at fs=2 nb=10, 20 of which only compare one per-pixel value with a
-// midpoint. Design: one thread-block cluster of G blocks of 512 threads per
+// chain of dependent reductions: at fs=2 nb=10 phases 1-4 are 6 passes
+// over the sample (the moments, the angles, one angle bisection pass, the
+// lasso, two concentration bisection passes), each ending at a cluster
+// barrier. Design: one thread-block cluster of G blocks of 512 threads per
 // tile, G from macenko_fused.cluster_plan, which weighs the batch against
 // the card's SMs (one image spreads over 16 of them; 256 tiles take two
 // blocks each, staged in device memory). The stain::Staged phases
 // (stain_common.cuh) stage each sample pixel's bytes and mask bit, its
 // pseudo-angle, then its two concentrations, in shared memory (or, for a
 // sample over 293K pixels, in a device-memory scratch buffer, by the same
-// code), so after one pass over device memory every bisection round is a
-// shared-memory compare, three rounds per reduction: a chain of 12
-// dependent reductions. The sample's chunks of 512 pixels are dealt to
-// the cluster's blocks in turns, so a band of background idles no block.
+// code), so after one pass over device memory a bisection pass reads
+// staged values into leaf histograms in shared memory, up to eight rounds
+// and the successor per reduction (stain::staged_percentile_pair): a chain
+// of 6 dependent reductions (7 at nb=14). The sample's chunks of 512
+// pixels are dealt to the cluster's blocks in turns, so a band of
+// background idles no block.
 // Phase 5, the only pass over every pixel, is split over the cluster by
 // pixel range; a thread takes 8 pixels per step through 64-bit accesses
 // (planar: three channel vectors; interleaved: 24 contiguous bytes, with a
@@ -47,11 +50,12 @@
 // cluster_plan), each owning 1/16 of the tile; the stain::Staged phases
 // (stain_common.cuh) stage each pixel's bytes and mask bit, its
 // pseudo-angle, then its two concentrations, in shared memory, so after
-// one pass over device memory every bisection round is a shared-memory
-// compare (three rounds per reduction) and the time is the chain of 14
-// dependent cluster reductions. A tile over 293K pixels (more than 16
-// blocks' shared memory holds) is staged in a device-memory scratch buffer
-// instead, by the same code. Rank 0 writes the 8 floats.
+// one pass over device memory the bisection reads staged values into leaf
+// histograms (up to eight rounds and the successor per reduction) and the
+// time is the chain of 7 dependent cluster reductions (nb=14). A tile
+// over 293K pixels (more than 16 blocks' shared memory holds) is staged
+// in a device-memory scratch buffer instead, by the same code. Rank 0
+// writes the 8 floats.
 //
 // eigenplane_kernel replaces eigenplane / _stats_kernel (:237-248,
 // :498-532): the ten masked OD moments (count, 3 sums, 6 second moments,
@@ -84,23 +88,22 @@
 // arrive by pointer and stride, and the kernel takes each image's rescale
 // itself: the wrapper builds no table.
 //
-// macenko_augment_kernel replaces the Pallas TPU kernel
-// macenko_augment_planar / _augment_kernel with estimate=True (:754-813,
-// :822-871): StainAugmentor fit + pop. K1's phases 1-3 on the whole tile
-// (the moments, the eigenplane, both angular bisections, the successor
-// recovery), then per pixel the exact lasso, C*alpha+beta where the pixel
-// is tissue (or every pixel with the background flag), 255*exp(-C M)
-// through the tile's own rows. Bound: work per pixel and the chain of
-// dependent reductions, not bytes. Design: K1's cluster, the whole tile
-// the sample (G from macenko_fused.cluster_plan's batch rule: 16 blocks
+// macenko_augment_kernel replaces the Pallas TPU kernel macenko_augment_planar
+// / _augment_kernel with estimate=True (:754-813, :822-871): StainAugmentor fit
+// + pop. K1's phases 1-3 on the whole tile (the moments, the eigenplane, both
+// angular bisections, the successor recovery), then per pixel the exact lasso,
+// C*alpha+beta where the pixel is tissue (or every pixel with the background
+// flag), 255*exp(-C M) through the tile's own rows. Bound: work per pixel and
+// the chain of dependent reductions, not bytes. Design: K1's cluster, the whole
+// tile the sample (G from macenko_fused.cluster_plan's batch rule: 16 blocks
 // for one image, two per tile staged in device memory for 256 tiles); the
-// staged estimate (stain::staged_macenko_rows) reads device memory once
-// and is then a chain of 7 dependent reductions (the moments, the angles'
-// min and max, four for the ten rounds, the successor); the apply is split
-// over the cluster by pixel range, 8 pixels per thread and step
-// (stain::map_image) through K7's per-pixel body (augment_bytes), which
-// reads the staged kernels' table rows. Per-tile alpha and beta arrive by
-// pointer and stride, the scalars by value: the wrapper builds no table.
+// staged estimate (stain::staged_macenko_rows) reads device memory once and is
+// then a chain of 4 dependent reductions at nb=14 (the moments, the angles' min
+// and max, two passes for the ten rounds and the successor; 3 at nb=10); the
+// apply is split over the cluster by pixel range, 8 pixels per thread and step
+// (stain::map_image) through K7's per-pixel body (augment_bytes), which reads
+// the staged kernels' table rows. Per-tile alpha and beta arrive by pointer and
+// stride, the scalars by value: the wrapper builds no table.
 //
 // augment_apply_kernel replaces augment_with_matrix_planar / the
 // _augment_kernel with estimate=False (:886-929): K6's per-pixel part
@@ -141,6 +144,7 @@ struct Args {
   float y_thr, lam, q_lo, q_hi, q_conc;
   int it_angle, it_conc;
   int slice;      // K1, K4, K6: sample pixels staged per block
+  int levels;     // K1, K4, K6: the most bisection rounds per reduction
   float* scratch;  // K1, K4, K6: the blocks' stages in device memory, or
                    // nullptr
 };
@@ -153,7 +157,7 @@ struct ClusterShared {
   double dbuf[10 * kWarps];
   float lut[4][256];
   float fbuf[2 * kWarps];
-  int ibuf[14 * kWarps];
+  uint32_t hist[stain::hist_words(stain::kStaticLevels)];
   float res[8];
   stain::ClusterSlots cs;
 };
@@ -188,6 +192,7 @@ __global__ void __launch_bounds__(kThreads, 2) macenko_apply_kernel(Args a) {
       [&](uint32_t r, uint32_t g, uint32_t b, uint32_t* out) {
         stain::normalize_bytes(r, g, b, od, as, out);
       });
+  stain::staged_end(s);
 }
 
 __global__ void __launch_bounds__(kThreads, 2) macenko_fit_kernel(Args a) {
@@ -206,6 +211,7 @@ __global__ void __launch_bounds__(kThreads, 2) macenko_fit_kernel(Args a) {
     out[6] = maxc[0];
     out[7] = maxc[1];
   }
+  stain::staged_end(s);
 }
 
 // K10. One tile is one cluster of G blocks (macenko_fused.eigenplane_plan);
@@ -381,6 +387,7 @@ __global__ void __launch_bounds__(kThreads, 2) macenko_augment_kernel(
         [&](uint32_t r, uint32_t g, uint32_t b, uint32_t* px) {
           augment_bytes<false>(r, g, b, lut, im, a.lam, a.y_thr, px);
         });
+  stain::staged_end(s);
 }
 
 // K7 and K3. A persistent 1-D grid sized from the card walks (image, chunk)
@@ -541,7 +548,7 @@ Args make_args(const void* in, void* out, const void* scal, const void* luts,
                int n_pix, int pix_stride, int ch_stride, int nblk, int blk,
                int stp, float y_thr, float lam, float q_lo, float q_hi,
                float q_conc, int it_angle, int it_conc, int slice = 0,
-               float* scratch = nullptr) {
+               int levels = 0, float* scratch = nullptr) {
   Args a;
   a.in = static_cast<const uint8_t*>(in);
   a.out = out;
@@ -561,6 +568,7 @@ Args make_args(const void* in, void* out, const void* scal, const void* luts,
   a.it_angle = it_angle;
   a.it_conc = it_conc;
   a.slice = slice;
+  a.levels = levels;
   a.scratch = scratch;
   return a;
 }
@@ -576,14 +584,14 @@ extern "C" cudaError_t macenko_normalize_launch(
     int device, const void* in, void* out, const void* scal, const void* luts,
     int batch, int n_pix, int pix_stride, int ch_stride, int nblk, int blk,
     int stp, float y_thr, float lam, float q_lo, float q_hi, float q_conc,
-    int it_angle, int it_conc, int G, int slice, int smem, void* scratch,
-    void* stream) {
+    int it_angle, int it_conc, int G, int slice, int smem, int levels,
+    void* scratch, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (batch == 0) return cudaSuccess;
   const Args a = make_args(in, out, scal, luts, n_pix, pix_stride, ch_stride,
                            nblk, blk, stp, y_thr, lam, q_lo, q_hi, q_conc,
-                           it_angle, it_conc, slice,
+                           it_angle, it_conc, slice, levels,
                            static_cast<float*>(scratch));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return pix_stride == 1
@@ -597,14 +605,14 @@ extern "C" cudaError_t macenko_fit_launch(
     int device, const void* in, void* out, const void* luts, int batch,
     int n_pix, int pix_stride, int ch_stride, float y_thr, float lam,
     float q_lo, float q_hi, float q_conc, int it_angle, int it_conc, int G,
-    int slice, int smem, void* scratch, void* stream) {
+    int slice, int smem, int levels, void* scratch, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (batch == 0) return cudaSuccess;
   // The fit covers the whole tile: a one-block sample.
   const Args a = make_args(in, out, nullptr, luts, n_pix, pix_stride,
                            ch_stride, 1, n_pix, n_pix, y_thr, lam, q_lo, q_hi,
-                           q_conc, it_angle, it_conc, slice,
+                           q_conc, it_angle, it_conc, slice, levels,
                            static_cast<float*>(scratch));
   return stain::launch_cluster<macenko_fit_kernel>(
       a, device, batch, G, kThreads, smem, static_cast<cudaStream_t>(stream));
@@ -639,7 +647,7 @@ extern "C" cudaError_t augment_launch(
     int alpha_stride, const void* beta, int beta_stride, const void* luts,
     int batch, int n_pix, int pix_stride, int ch_stride, float y_thr,
     float lam, int all, float q_lo, float q_hi, int it_angle, int G,
-    int slice, int smem, void* scratch, void* stream) {
+    int slice, int smem, int levels, void* scratch, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (batch == 0) return cudaSuccess;
@@ -647,7 +655,7 @@ extern "C" cudaError_t augment_launch(
   AugmentArgs a;
   static_cast<Args&>(a) = make_args(
       in, out, nullptr, luts, n_pix, pix_stride, ch_stride, 1, n_pix, n_pix,
-      y_thr, lam, q_lo, q_hi, 0.0f, it_angle, 0, slice,
+      y_thr, lam, q_lo, q_hi, 0.0f, it_angle, 0, slice, levels,
       static_cast<float*>(scratch));
   a.alpha = static_cast<const float*>(alpha);
   a.beta = static_cast<const float*>(beta);

@@ -17,16 +17,18 @@
 // A tile with an empty mask keeps its BCD start and reconstructs with zero
 // concentrations: white stays white, as in the TPU kernel.
 //
-// Bound: work per pixel, not bytes. At fs=2 it=8 nb=10 a tile takes 31
-// passes over its sample; 22 of them (the bisection rounds and successor
-// recoveries) only compare one per-pixel value (pseudo-angle,
-// concentration) with a midpoint, so that value is worth keeping. Design:
+// Bound: work per pixel, not bytes. At fs=2 it=8 nb=10 a tile takes 15
+// passes over its sample; 4 of them (the bisection passes) only bin one
+// per-pixel value (pseudo-angle, concentration) into leaf histograms, so
+// that value is worth keeping. Design:
 // one cluster of G blocks of 512 threads per tile (G from
 // macenko_fused.cluster_plan: 4 at 256^2 fs=2, 16 at 512^2), each block
 // owning a slice of the sample; the stain::Staged phases (stain_common.cuh)
 // stage the slice's bytes and mask bits in the first pass, the angles,
 // then the two concentrations, in shared memory, so the bisection rounds
-// are shared-memory compares (three rounds per reduction) and the angle,
+// read staged values (up to eight rounds and the successor per reduction,
+// as far as the stage leaves shared memory for the histograms: 7 beside
+// K2's 96 KB stages at 256^2 fs=2) and the angle,
 // BCD and concentration passes read no device memory; the apply pass is
 // split over the cluster. A sample larger than 16 blocks' shared memory
 // holds (over 293K pixels) is staged in a device-memory scratch buffer
@@ -37,24 +39,24 @@
 // three divisors with the loop-invariant half of each division kept
 // (stain::lasso2_by: the division's own bits). The output is
 // bit-reproducible and equals the plain version's. A tile is then a chain
-// of 20 dependent reductions, and the time grows with the blocks per tile
+// of 15 dependent reductions, and the time grows with the blocks per tile
 // (PERF.md, section 5).
 //
 // vahadane_dict_kernel replaces vahadane_stain_matrix_planar / _dict_kernel
 // (:48-108, :286-323): phases 1-2 only, on the whole tile at the callers'
-// fit_stride=1, writing [D(6), n_valid, 0] per tile; the wrapper does the
-// swap / normalization / NaN post-pass. Bound: work per pixel; at it=12
-// nb=14 a tile is 12 BCD passes (a lasso, nine products and nine double
-// sums per tissue pixel) after a warm start of 5 reductions. Design: K2's
-// cluster and stage, G from cluster_plan("K8"), which weighs the batch
-// against the card's SMs (one image spreads over 16 of them; 256 tiles
-// take two blocks each, staged in device memory). The sample's chunks of
-// 512 pixels are dealt to the cluster's blocks in turns, so a band of
-// background idles no block. The warm start's 13 passes become one pass
-// over device memory and shared-memory compares; the 12 alternations read
-// one staged word per pixel (its bytes and mask bit) in place of three
-// bytes from device memory, skip a pixel outside the mask, and divide as
-// K2's do (stain::staged_bcd_iteration). Rank 0 writes the eight floats. A chain of 17 dependent reductions per tile.
+// fit_stride=1, writing [D(6), n_valid, 0] per tile; the wrapper does the swap
+// / normalization / NaN post-pass. Bound: work per pixel; at it=12 nb=14 a tile
+// is 12 BCD passes (a lasso, nine products and nine double sums per tissue
+// pixel) after a warm start of 5 reductions. Design: K2's cluster and stage, G
+// from cluster_plan("K8"), which weighs the batch against the card's SMs (one
+// image spreads over 16 of them; 256 tiles take two blocks each, staged in
+// device memory). The sample's chunks of 512 pixels are dealt to the cluster's
+// blocks in turns, so a band of background idles no block. The warm start reads
+// device memory once and then staged values only (stain::staged_macenko_rows);
+// the 12 alternations read one staged word per pixel (its bytes and mask bit)
+// in place of three bytes from device memory, skip a pixel outside the mask,
+// and divide as K2's do (stain::staged_bcd_iteration). Rank 0 writes the eight
+// floats. A chain of 16 dependent reductions per tile.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,6 +78,7 @@ struct Args {
   float y_thr, lam_fit, lam, q_lo, q_hi, q_conc;
   int num_iters, it_angle, it_conc;
   int slice;      // sample pixels staged per block
+  int levels;     // the most bisection rounds per reduction
   float* scratch;  // the blocks' stages in device memory, or nullptr
 };
 
@@ -86,7 +89,7 @@ struct ClusterShared {
   double dbuf[10 * kWarps];
   float lut[4][256];
   float fbuf[2 * kWarps];
-  int ibuf[14 * kWarps];
+  uint32_t hist[stain::hist_words(stain::kStaticLevels)];
   float res[8];
   stain::ClusterSlots cs;
 };
@@ -128,6 +131,7 @@ __global__ void __launch_bounds__(kThreads, 2) vahadane_normalize_kernel(Args a)
     stain::write_pixel(dst + (size_t)p * a.pix_stride, a.ch_stride,
                        c1 * scale1, c2 * scale2, scal);
   }
+  stain::staged_end(s);
 }
 
 __global__ void __launch_bounds__(kThreads, 2) vahadane_dict_kernel(Args a) {
@@ -146,13 +150,14 @@ __global__ void __launch_bounds__(kThreads, 2) vahadane_dict_kernel(Args a) {
     out[6] = n_valid;
     out[7] = 0.0f;
   }
+  stain::staged_end(s);
 }
 
 Args make_args(const void* in, void* out, const void* scal, const void* luts,
                int n_pix, int pix_stride, int ch_stride, int nblk, int blk,
                int stp, float y_thr, float lam_fit, float lam, float q_lo,
                float q_hi, float q_conc, int num_iters, int it_angle,
-               int it_conc, int slice, float* scratch) {
+               int it_conc, int slice, int levels, float* scratch) {
   Args a;
   a.in = static_cast<const uint8_t*>(in);
   a.out = out;
@@ -174,6 +179,7 @@ Args make_args(const void* in, void* out, const void* scal, const void* luts,
   a.it_angle = it_angle;
   a.it_conc = it_conc;
   a.slice = slice;
+  a.levels = levels;
   a.scratch = scratch;
   return a;
 }
@@ -189,14 +195,14 @@ extern "C" cudaError_t vahadane_normalize_launch(
     int batch, int n_pix, int pix_stride, int ch_stride, int nblk, int blk,
     int stp, float y_thr, float lam_fit, float lam, float q_lo, float q_hi,
     float q_conc, int num_iters, int it_angle, int it_conc, int G, int slice,
-    int smem, void* scratch, void* stream) {
+    int smem, int levels, void* scratch, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (batch == 0) return cudaSuccess;
   const Args a = make_args(in, out, scal, luts, n_pix, pix_stride, ch_stride,
                            nblk, blk, stp, y_thr, lam_fit, lam, q_lo, q_hi,
                            q_conc, num_iters, it_angle, it_conc, slice,
-                           static_cast<float*>(scratch));
+                           levels, static_cast<float*>(scratch));
   return stain::launch_cluster<vahadane_normalize_kernel>(
       a, device, batch, G, kThreads, smem, static_cast<cudaStream_t>(stream));
 }
@@ -205,14 +211,15 @@ extern "C" cudaError_t vahadane_dict_launch(
     int device, const void* in, void* out, const void* luts, int batch,
     int n_pix, int pix_stride, int ch_stride, int nblk, int blk, int stp,
     float y_thr, float lam_fit, float q_lo, float q_hi, int num_iters,
-    int it_angle, int G, int slice, int smem, void* scratch, void* stream) {
+    int it_angle, int G, int slice, int smem, int levels, void* scratch,
+    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (batch == 0) return cudaSuccess;
   const Args a = make_args(in, out, nullptr, luts, n_pix, pix_stride,
                            ch_stride, nblk, blk, stp, y_thr, lam_fit, 0.0f,
                            q_lo, q_hi, 0.0f, num_iters, it_angle, 0, slice,
-                           static_cast<float*>(scratch));
+                           levels, static_cast<float*>(scratch));
   return stain::launch_cluster<vahadane_dict_kernel>(
       a, device, batch, G, kThreads, smem, static_cast<cudaStream_t>(stream));
 }

@@ -22,7 +22,8 @@ Kernel source note (``csrc/fused_stain.cu``):
   ``macenko_fused.cluster_plan``'s G blocks of 512 threads per tile (16
   for one image, two per tile staged in device memory for 256 tiles). The
   one pass over device memory stages every pixel's two concentrations, so
-  the bisection rounds, three per reduction, compare staged values, and
+  the bisection bins staged values into leaf histograms, up to eight
+  rounds and the successor per reduction (three reductions in all), and
   the apply, since the sample is the whole tile, rescales and
   reconstructs each pixel from its staged concentrations. A shared
   256-entry OD table holds ``_od_lasso``'s expression, not
@@ -33,7 +34,8 @@ Kernel source note (``csrc/fused_stain.cu``):
 
 On a CUDA tensor ``fused_normalize_planar`` launches the kernel; on a CPU
 tensor it runs the plain version ``fused_normalize_planar_ref``.
-``launches`` counts kernel launches.
+``launches`` counts kernel launches, ``reductions_per_tile`` the chain
+length of the last.
 """
 
 from __future__ import annotations
@@ -47,9 +49,13 @@ from stainlib_tpu_torch.utils.profiling import kernel_entry
 
 LANES = 128
 BIG = 3.4e38
+_ITERS = 14  # K9's bisection rounds per concentration search
 
 # Kernel launches since import (or since a caller reset it).
 launches = 0
+# Dependent cluster reductions per tile of the last launch
+# (``macenko_fused.chain_length``).
+reductions_per_tile = 0
 
 
 def to_planar(rgb):
@@ -320,7 +326,7 @@ def fused_normalize_planar_ref(rgb_planar, stain_matrix_src, stain_matrix_tgt,
                               rgb_planar.device)
     c1, c2 = _od_lasso(rgb_planar, list(scal[:, 0:3].T),
                        list(scal[:, 3:6].T), scal[:, 14, None])
-    out = _scale_and_reconstruct(c1, c2, None, q, 14, scal[:, 6:12],
+    out = _scale_and_reconstruct(c1, c2, None, q, _ITERS, scal[:, 6:12],
                                  scal[:, 12:14])
     return out.reshape(B, 3, R, L)
 
@@ -340,13 +346,14 @@ def _launch(x, planar: bool, stain_matrix_src, stain_matrix_tgt,
             g: int | None = None):
     """K9 on CUDA tiles at ``macenko_fused.cluster_plan``'s G (``g`` forces
     it)."""
-    global launches
+    global launches, reductions_per_tile
     from stainlib_tpu_torch.kernels import _build
     from stainlib_tpu_torch.kernels import macenko_fused as mf
 
     B, dev = x.shape[0], x.device
     n_pix = _n_pix(x, planar)
     plan = mf.cluster_plan(n_pix, "K9", g, B, mf.sm_count(dev))
+    args = mf.staged_args(plan)
     scratch = mf.stage_scratch(plan, B, dev)
     (rows, rows_stride), (tgt, tgt_stride), (mct, mct_stride) = (
         _pointer_arg(stain_matrix_src, 6, B, dev),
@@ -358,9 +365,10 @@ def _launch(x, planar: bool, stain_matrix_src, stain_matrix_tgt,
                   out.data_ptr(), rows.data_ptr(), rows_stride,
                   tgt.data_ptr(), tgt_stride, mct.data_ptr(), mct_stride,
                   _od_lasso_table(dev).data_ptr(), B, n_pix, pix_stride,
-                  ch_stride, regularizer, q / 100.0, 14, *plan,
+                  ch_stride, regularizer, q / 100.0, _ITERS, *args,
                   None if scratch is None else scratch.data_ptr())
     launches += 1
+    reductions_per_tile = mf.chain_length("K9", args[3], it_conc=_ITERS)
     return out
 
 

@@ -40,10 +40,12 @@ Kernel source note (``csrc/macenko_fused.cu``):
   :func:`cluster_plan`'s G blocks of 512 threads per tile: each block
   stages its share of the sample's bytes, pseudo-angles, then
   concentrations, in shared memory, so only the first pass (and the apply
-  of K1 and K6) reads device memory and the bisection rounds (three per
-  reduction) are shared-memory compares; the reductions cross the cluster
-  through distributed shared memory in rank order, so every G gives the
-  same bytes. A sample over 293K pixels is staged in device memory
+  of K1 and K6) reads device memory and a bisection pass bins staged
+  values into leaf histograms in shared memory, up to eight rounds and the
+  successor per reduction (:func:`hist_levels`, :func:`chain_length`:
+  K1's chain is 6 reductions at ``fit_stride=2, n_bisect=10``); the
+  reductions cross the cluster through distributed shared memory in rank
+  order, so every G gives the same bytes. A sample over 293K pixels is staged in device memory
   instead. K4 takes G = 16 (the tiled route's batch is one subsample);
   K1's and K6's G follow the batch (16 for one image, two blocks per tile
   staged in device memory for 256 tiles), their blocks take the sample's
@@ -74,7 +76,9 @@ On a CUDA tensor the wrappers launch the kernels; on a CPU tensor they run
 the plain torch versions (``*_ref``), which mirror the TPU kernels step for
 step and are the kernels' oracles. ``launches``, ``fit_launches``,
 ``eigenplane_launches``, ``matrix_launches``, ``aug_launches`` and
-``augment_launches`` count the launches of K1, K4, K10, K3, K6 and K7.
+``augment_launches`` count the launches of K1, K4, K10, K3, K6 and K7;
+``reductions_per_tile`` holds the chain length of the last K1, K4 or K6
+launch.
 """
 
 from __future__ import annotations
@@ -110,6 +114,9 @@ fit_launches = 0
 eigenplane_launches = 0
 aug_launches = 0  # K6
 augment_launches = 0  # K7
+# Dependent cluster reductions per tile of the last K1, K4 or K6 launch
+# (:func:`chain_length`).
+reductions_per_tile = 0
 
 # Degree-6 fit of ((c+0.055)/1.055)^2.4 on [0.04045, 1] (max error 7.4e-6),
 # the JAX kernel's mask linearization (macenko_fused.py:54-57), kept so the
@@ -207,8 +214,9 @@ STAGE_BYTES = 12
 _THREADS = 512
 _SMEM_SM = 228 * 1024  # an H100 SM's shared memory
 _SMEM_BLOCK = 227 * 1024  # one block's opt-in maximum
-# The kernels' static shared memory (10.1 KB: tables, reduction buffers, the
-# cluster's slots) and the 1 KB the runtime keeps per block, rounded up.
+# The kernels' static shared memory (9.6 KB: tables, reduction buffers, the
+# cluster's slots, a 4-level bisection histogram) and the 1 KB the runtime
+# keeps per block, rounded up.
 _SMEM_STATIC = 12 * 1024
 _MIN_SLICE = 16384  # sample pixels per block below which a big batch's
 #                     tiles are not split (cluster_plan)
@@ -349,6 +357,63 @@ def stage_scratch(plan: ClusterPlan, batch: int, device):
         return None
     return torch.empty(batch * plan.g * STAGE_BYTES // 4 * plan.slice,
                        dtype=torch.float32, device=device)
+
+
+# The staged kernels' percentile searches (``staged_percentile_pair`` in
+# ``csrc/stain_common.cuh``) take up to ``levels`` bisection rounds and the
+# successor per cluster reduction, from a leaf histogram of 2^levels leaves
+# per search in shared memory: 4 * (10 * 2^levels + 10) bytes with its two
+# parities and thresholds. The kernels' static shared memory holds 4 levels;
+# more take dynamic shared memory after the stage, as far as the room the
+# plan leaves allows.
+_MAX_LEVELS = 8
+_STATIC_LEVELS = 4
+
+
+def hist_bytes(levels: int) -> int:
+    """Dynamic shared memory of the bisection histograms at ``levels``
+    (0: the kernels' static shared memory holds them)."""
+    return 0 if levels <= _STATIC_LEVELS else 4 * (10 * 2 ** levels + 10)
+
+
+def hist_levels(plan: ClusterPlan) -> int:
+    """The most bisection rounds per reduction under ``plan``: the largest
+    level count up to 8 whose histograms fit beside the plan's stage, in
+    half an SM's shared memory where the stage leaves two blocks to an SM
+    (or lies in device memory), else in one block's."""
+    room = (_SMEM_SM // 2 if plan.smem <= _SMEM_SM // 2 - _SMEM_STATIC
+            else _SMEM_BLOCK) - _SMEM_STATIC - plan.smem
+    return next((lv for lv in range(_MAX_LEVELS, _STATIC_LEVELS, -1)
+                 if hist_bytes(lv) <= room), _STATIC_LEVELS)
+
+
+def staged_args(plan: ClusterPlan):
+    """A staged kernel's launch arguments from its plan: G, the slice, the
+    dynamic shared memory (stage and histograms) and the levels."""
+    levels = hist_levels(plan)
+    return plan.g, plan.slice, plan.smem + hist_bytes(levels), levels
+
+
+def bisection_passes(iters: int, levels: int) -> int:
+    """Cluster reductions of one pair of percentile searches of ``iters``
+    rounds at ``levels`` rounds per reduction, the successor included."""
+    return max(1, -(-iters // levels))
+
+
+def chain_length(kernel: str, levels: int, it_angle: int = 0,
+                 it_conc: int = 0, num_iters: int = 0) -> int:
+    """The dependent cluster reductions per tile of a staged kernel:
+    the moments and the angles' extremes, the angle searches (K1, K2, K4,
+    K6, K8), ``num_iters`` BCD steps (K2, K8), the concentrations' maxima
+    and their searches (K1, K2, K4, K9)."""
+    n = 0
+    if kernel != "K9":
+        n += 2 + bisection_passes(it_angle, levels)
+    if kernel in ("K2", "K8"):
+        n += num_iters
+    if kernel in ("K1", "K2", "K4", "K9"):
+        n += 1 + bisection_passes(it_conc, levels)
+    return n
 
 
 # ---------------------------------------------------------------------------
@@ -588,13 +653,15 @@ def _launch(x, planar: bool, stain_matrix_tgt, max_c_target,
             regularizer: float = 0.01, n_bisect: int = 14,
             fit_stride: int = 1, g: int | None = None):
     """K1 on CUDA tiles at :func:`cluster_plan`'s G (``g`` forces it)."""
-    global launches
+    global launches, reductions_per_tile
     from stainlib_tpu_torch.kernels import _build
 
     B, dev = x.shape[0], x.device
     n_pix = _n_pix(x, planar)
     nblk, blk, stp = _sample_args(n_pix, fit_stride)
     plan = cluster_plan(nblk * blk, "K1", g, B, sm_count(dev))
+    args = staged_args(plan)
+    it_angle = max(n_bisect - 4, 8)
     scratch = stage_scratch(plan, B, dev)
     scal = _target_scalars(stain_matrix_tgt, max_c_target, B, dev)
     out = torch.empty_like(x)
@@ -604,10 +671,11 @@ def _launch(x, planar: bool, stain_matrix_tgt, max_c_target,
                   B, n_pix, pix_stride, ch_stride, nblk, blk, stp,
                   _y_threshold(luminosity_threshold), regularizer,
                   (100.0 - angular_percentile) / 100.0,
-                  angular_percentile / 100.0, q_conc / 100.0,
-                  max(n_bisect - 4, 8), n_bisect, *plan,
+                  angular_percentile / 100.0, q_conc / 100.0, it_angle,
+                  n_bisect, *args,
                   None if scratch is None else scratch.data_ptr())
     launches += 1
+    reductions_per_tile = chain_length("K1", args[3], it_angle, n_bisect)
     return out
 
 
@@ -680,22 +748,25 @@ def _fit_launch(rgb_planar, luminosity_threshold: float = 0.8,
                 regularizer: float = 0.01, n_bisect: int = 14,
                 g: int | None = None):
     """K4 on CUDA tiles at :func:`cluster_plan`'s G (``g`` forces it)."""
-    global fit_launches
+    global fit_launches, reductions_per_tile
     from stainlib_tpu_torch.kernels import _build
 
     B, dev = rgb_planar.shape[0], rgb_planar.device
     n_pix = _n_pix(rgb_planar, True)
     plan = cluster_plan(n_pix, "K4", g)
+    args = staged_args(plan)
+    it_angle = max(n_bisect - 4, 8)
     scratch = stage_scratch(plan, B, dev)
     plane = torch.empty((B, 8), dtype=torch.float32, device=dev)
     _build.launch("macenko_fit_launch", dev, rgb_planar.data_ptr(),
                   plane.data_ptr(), _tables(dev).data_ptr(), B, n_pix, 1,
                   n_pix, _y_threshold(luminosity_threshold), regularizer,
                   (100.0 - angular_percentile) / 100.0,
-                  angular_percentile / 100.0, q_conc / 100.0,
-                  max(n_bisect - 4, 8), n_bisect, *plan,
+                  angular_percentile / 100.0, q_conc / 100.0, it_angle,
+                  n_bisect, *args,
                   None if scratch is None else scratch.data_ptr())
     fit_launches += 1
+    reductions_per_tile = chain_length("K4", args[3], it_angle, n_bisect)
     return plane[:, :6].reshape(B, 2, 3), plane[:, 6:8]
 
 
@@ -977,12 +1048,14 @@ def _aug_launch(x, planar: bool, alpha, beta,
                 g: int | None = None):
     """K6 on CUDA tiles at :func:`cluster_plan`'s G (``g`` forces it); alpha
     and beta by pointer and stride (:func:`_pointer_arg`)."""
-    global aug_launches
+    global aug_launches, reductions_per_tile
     from stainlib_tpu_torch.kernels import _build
 
     B, dev = x.shape[0], x.device
     n_pix = _n_pix(x, planar)
     plan = cluster_plan(n_pix, "K6", g, B, sm_count(dev))
+    args = staged_args(plan)
+    it_angle = max(n_bisect - 4, 8)
     scratch = stage_scratch(plan, B, dev)
     (al, al_stride), (be, be_stride) = (_pointer_arg(alpha, 2, B, dev),
                                         _pointer_arg(beta, 2, B, dev))
@@ -994,9 +1067,10 @@ def _aug_launch(x, planar: bool, alpha, beta,
                   _y_threshold(luminosity_threshold), regularizer,
                   int(augment_background),
                   (100.0 - angular_percentile) / 100.0,
-                  angular_percentile / 100.0, max(n_bisect - 4, 8), *plan,
+                  angular_percentile / 100.0, it_angle, *args,
                   None if scratch is None else scratch.data_ptr())
     aug_launches += 1
+    reductions_per_tile = chain_length("K6", args[3], it_angle)
     return out
 
 

@@ -36,8 +36,9 @@ Kernel source note (``csrc/vahadane_fused.cu``):
   blocks per tile, each owning a share of the estimation sample: the
   slice's bytes and mask bits, the pseudo-angles, then the two
   concentrations are staged in shared memory, so only the first pass and
-  the apply read device memory and the bisection rounds (three per
-  reduction) are shared-memory compares; reductions cross the cluster
+  the apply read device memory and a bisection pass bins staged values
+  into leaf histograms, up to eight rounds and the successor per
+  reduction; reductions cross the cluster
   through distributed shared memory in rank order; a sample over 293K
   pixels is staged in device memory instead. A BCD iteration is one
   pass: lasso codes, the nine masked sums in one reduction, the row update
@@ -49,7 +50,9 @@ Kernel source note (``csrc/vahadane_fused.cu``):
 On a CUDA tensor the wrappers launch the kernels; on a CPU tensor they run
 the plain torch versions (``*_ref``), which follow the JAX kernel bodies
 step for step and are the kernels' oracle. ``launches`` counts launches of
-the fit+transform kernel, ``dict_launches`` of the dictionary kernel.
+the fit+transform kernel, ``dict_launches`` of the dictionary kernel;
+``reductions_per_tile`` holds the chain length of the last launch of
+either.
 """
 
 from __future__ import annotations
@@ -76,9 +79,11 @@ from stainlib_tpu_torch.kernels.macenko_fused import (
     _tables,
     _target_scalars,
     _y_threshold,
+    chain_length,
     cluster_plan,
     sm_count,
     stage_scratch,
+    staged_args,
 )
 from stainlib_tpu_torch.ops.dictlearn import _HE_INIT
 from stainlib_tpu_torch.utils.profiling import kernel_entry
@@ -86,6 +91,9 @@ from stainlib_tpu_torch.utils.profiling import kernel_entry
 # Kernel launches since import (or since a caller reset them).
 launches = 0  # vahadane_normalize kernel
 dict_launches = 0  # vahadane_dict kernel
+# Dependent cluster reductions per tile of the last K2 or K8 launch
+# (``macenko_fused.chain_length``).
+reductions_per_tile = 0
 
 _Q_ANGLE = 99.0  # the warm start's angular percentile (:77-78, :149-150)
 
@@ -237,13 +245,15 @@ def _launch(x, planar: bool, stain_matrix_tgt, max_c_target,
             n_bisect: int = 14, q_conc: float = 99.0, fit_stride: int = 1,
             g: int | None = None):
     """K2 on CUDA tiles at :func:`cluster_plan`'s G (``g`` forces it)."""
-    global launches
+    global launches, reductions_per_tile
     from stainlib_tpu_torch.kernels import _build
 
     B, dev = x.shape[0], x.device
     n_pix = _n_pix(x, planar)
     nblk, blk, stp = _sample_args(n_pix, fit_stride)
     plan = cluster_plan(nblk * blk, "K2", g)
+    args = staged_args(plan)
+    it_angle = max(n_bisect - 4, 8)
     scratch = stage_scratch(plan, B, dev)
     scal = _target_scalars(stain_matrix_tgt, max_c_target, B, dev)
     out = torch.empty_like(x)
@@ -253,9 +263,11 @@ def _launch(x, planar: bool, stain_matrix_tgt, max_c_target,
                   B, n_pix, pix_stride, ch_stride, nblk, blk, stp,
                   _y_threshold(luminosity_threshold), regularizer_fit,
                   regularizer, (100.0 - _Q_ANGLE) / 100.0, _Q_ANGLE / 100.0,
-                  q_conc / 100.0, num_iters, max(n_bisect - 4, 8), n_bisect,
-                  *plan, None if scratch is None else scratch.data_ptr())
+                  q_conc / 100.0, num_iters, it_angle, n_bisect, *args,
+                  None if scratch is None else scratch.data_ptr())
     launches += 1
+    reductions_per_tile = chain_length("K2", args[3], it_angle, n_bisect,
+                                       num_iters)
     return out
 
 
@@ -309,22 +321,26 @@ def _dict_launch(rgb_planar, regularizer: float = 0.1, num_iters: int = 12,
                  fit_stride: int = 1, g: int | None = None):
     """K8 on CUDA tiles at :func:`cluster_plan`'s G (``g`` forces it):
     the (B, 8) rows ``[D(6), n_valid, 0]``."""
-    global dict_launches
+    global dict_launches, reductions_per_tile
     from stainlib_tpu_torch.kernels import _build
 
     B, dev = rgb_planar.shape[0], rgb_planar.device
     n_pix = _n_pix(rgb_planar, True)
     nblk, blk, stp = _sample_args(n_pix, fit_stride)
     plan = cluster_plan(nblk * blk, "K8", g, B, sm_count(dev))
+    args = staged_args(plan)
+    it_angle = max(n_bisect - 4, 8)
     scratch = stage_scratch(plan, B, dev)
     plane = torch.empty((B, 8), dtype=torch.float32, device=dev)
     _build.launch("vahadane_dict_launch", dev, rgb_planar.data_ptr(),
                   plane.data_ptr(), _tables(dev).data_ptr(), B, n_pix, 1,
                   n_pix, nblk, blk, stp, _y_threshold(luminosity_threshold),
                   regularizer, (100.0 - _Q_ANGLE) / 100.0, _Q_ANGLE / 100.0,
-                  num_iters, max(n_bisect - 4, 8), *plan,
+                  num_iters, it_angle, *args,
                   None if scratch is None else scratch.data_ptr())
     dict_launches += 1
+    reductions_per_tile = chain_length("K8", args[3], it_angle,
+                                       num_iters=num_iters)
     return plane
 
 
