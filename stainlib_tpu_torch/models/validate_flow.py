@@ -81,19 +81,25 @@ def _hsd(batch, dev) -> torch.Tensor:
 
 
 @torch.inference_mode()
-def encode_gamma(flow, gmm, params, spectral, hsd):
-    """The GMM responsibilities of an HSD batch (B, H, W, 3): (B, H, W, K),
-    channels last as :mod:`color_eval` takes them, on the image grid.
+def encode_latent(flow, gmm, params, spectral, hsd):
+    """The flow's latent z (B, C, H', W') of an HSD batch (B, H, W, 3) and
+    the GMM responsibilities gamma (B, H, W, K), channels last as
+    :mod:`color_eval` takes them, on the image grid.
 
     The deploy route: the flow's forward with ``skip_logdet=True`` (no
     probes, no series) and the GMM head, as ``train_flow.encode`` computes
-    gamma, without bits/dim; any size the flow's squeezes divide."""
+    z and gamma, without bits/dim; any size the flow's squeezes divide."""
     h, w = hsd.shape[-3], hsd.shape[-2]
     z, _ = functional_call(flow, {**params["flow"], **spectral},
                            (_density01(hsd),), {"skip_logdet": True})
     _, (_, _, gamma) = functional_call(
         gmm, params["gmm"], (z, hsd[..., :2].permute(0, 3, 1, 2)))
-    return upsample_gamma(gamma, h, w).permute(0, 2, 3, 1)
+    return z, upsample_gamma(gamma, h, w).permute(0, 2, 3, 1)
+
+
+def encode_gamma(flow, gmm, params, spectral, hsd):
+    """The gamma of :func:`encode_latent`."""
+    return encode_latent(flow, gmm, params, spectral, hsd)[1]
 
 
 def _batch_sums(flow, gmm, cfg, params, spectral, hsd, generator=None,
@@ -220,27 +226,32 @@ def accumulate_template_stats(flow, gmm, cfg: FlowConfig, params, spectral,
 
 
 def transfer_batch(hsd, gamma, mu_t, sd_t, perm=None, cov_t=None, q_t=None,
-                   q_space: str = "hsd", composite: bool = False):
-    """One deploy batch's transfer, uint8 RGB out, with the batch's own
-    source statistics (the reference's one (mu, sigma) per deploy batch,
-    ``train_img_horo.py:703-705``, applied at ``:815``). The template's
-    ``cov_t`` / ``q_t`` select the transfer as in :func:`deploy`."""
+                   q_space: str = "hsd", composite: bool = False,
+                   source: Optional[TemplateStats] = None):
+    """One deploy batch's transfer, uint8 RGB out. The source statistics
+    are the batch's own (the reference's one (mu, sigma) per deploy batch,
+    ``train_img_horo.py:703-705``, applied at ``:815``), or ``source``'s,
+    fitted once (a slide's). The template's ``cov_t`` / ``q_t`` select the
+    transfer as in :func:`deploy`."""
+    xq = hsd if q_space == "hsd" or q_t is None else hsd_to_rgb(hsd)
     if composite and q_t is not None and cov_t is not None:
-        xq = hsd if q_space == "hsd" else hsd_to_rgb(hsd)
-        mu_s, cov_s = color_eval.class_color_cov(xq, gamma)
+        mu_s, cov_s = (color_eval.class_color_cov(xq, gamma)
+                       if source is None else (source.mu, source.cov))
         return color_eval.image_dist_transform_full_quantile(
             xq, gamma, mu_s, cov_s, mu_t, cov_t, q_t, perm=perm,
             space=q_space)
     if q_t is not None:
-        xq = hsd if q_space == "hsd" else hsd_to_rgb(hsd)
-        q_s, _ = color_eval.class_channel_quantiles(xq, gamma)
+        q_s = (color_eval.class_channel_quantiles(xq, gamma)[0]
+               if source is None else source.quantiles)
         return color_eval.image_dist_transform_quantile(
             xq, gamma, q_s, q_t, perm=perm, space=q_space)
     if cov_t is not None:
-        mu_s, cov_s = color_eval.class_color_cov(hsd, gamma)
+        mu_s, cov_s = (color_eval.class_color_cov(hsd, gamma)
+                       if source is None else (source.mu, source.cov))
         return color_eval.image_dist_transform_full(
             hsd, gamma, mu_s, cov_s, mu_t, cov_t, perm=perm)
-    mu_s, sd_s = color_eval.class_color_stats(hsd, gamma)
+    mu_s, sd_s = (color_eval.class_color_stats(hsd, gamma)
+                  if source is None else (source.mu, source.sigma))
     return color_eval.image_dist_transform(hsd, gamma, mu_s, sd_s, mu_t,
                                            sd_t, perm=perm)
 

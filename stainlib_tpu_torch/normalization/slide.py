@@ -25,7 +25,8 @@ Estimation modes:
 
 ``flow_normalize_slide`` deploys the trained flow + GMM colour model the
 same way (``slide.py:450-628``): slide-level source statistics, then the
-per-class transfer of ``models.color_eval`` on every tile.
+per-class transfer of ``models.color_eval`` on every tile, each batch
+through the batch entry ``normalization.flow.FlowNormalizer``.
 
 Every public function takes a ``device``, ``"cuda"`` unless the caller asks
 for the CPU. The kernels run on a CUDA device for tiles the JAX package's
@@ -62,6 +63,7 @@ from stainlib_tpu_torch.kernels.macenko_fused import (
 from stainlib_tpu_torch.kernels.reinhard_fused import reinhard_normalize
 from stainlib_tpu_torch.kernels.vahadane_fused import vahadane_normalize
 from stainlib_tpu_torch.normalization import extractive, reinhard
+from stainlib_tpu_torch.normalization.flow import FLOW_TRANSFERS, FlowNormalizer
 from stainlib_tpu_torch.ops.percentile import percentile
 from stainlib_tpu_torch.parallel.collectives import all_gather_metrics
 
@@ -421,9 +423,6 @@ def normalize_slide(
         slide.close()
 
 
-FLOW_TRANSFERS = ("diag", "full", "quantile", "rgb-quantile")
-
-
 def flow_normalize_slide(
     src_path: str,
     out_path: str,
@@ -468,12 +467,9 @@ def flow_normalize_slide(
     or float RGB); see ``models.color_eval``. ``device``: where the model
     and the tiles run."""
     from stainlib_tpu_torch.data.synthetic import center_tiles
-    from stainlib_tpu_torch.models import color_eval
     from stainlib_tpu_torch.models.train_flow import (
         init_flow_state, reference_capacity)
-    from stainlib_tpu_torch.models.validate_flow import (
-        accumulate_template_stats, encode_gamma)
-    from stainlib_tpu_torch.ops.colorspace import hsd_to_rgb, rgb_to_hsd
+    from stainlib_tpu_torch.ops.colorspace import rgb_to_hsd
     from stainlib_tpu_torch.utils.checkpoint import restore_checkpoint
 
     if transfer not in FLOW_TRANSFERS:
@@ -484,7 +480,7 @@ def flow_normalize_slide(
         cfg = reference_capacity()
     tile = cfg.image_size
 
-    # Template tiles -> HSD batches.
+    # Template tiles, uint8 on the device.
     if template is None:
         template = center_tiles(0, max(batch * 4, 32), tile, tile,
                                 seed=seed + 100)
@@ -496,27 +492,19 @@ def flow_normalize_slide(
                                                seed=seed + 100)
         finally:
             t_slide.close()
-    tmpl_hsd = rgb_to_hsd(torch.from_numpy(np.ascontiguousarray(
-        template)).to(dev))
+    tmpl = torch.from_numpy(np.ascontiguousarray(template)).to(dev)
 
-    flow, gmm, state, _ = init_flow_state(cfg, seed,
-                                          sample_hsd=tmpl_hsd[:batch],
-                                          device=dev)
+    _, _, state, _ = init_flow_state(
+        cfg, seed, sample_hsd=rgb_to_hsd(tmpl[:batch]), device=dev)
     state = restore_checkpoint(ckpt_dir, state)
     params = state.ema.params if use_ema else state.params
-    spectral = state.spectral
+    norm = FlowNormalizer(cfg, params, state.spectral, transfer=transfer,
+                          class_match=class_match)
 
-    full = transfer == "full"
-    quant = transfer in ("quantile", "rgb-quantile")
-    q_space = "rgb" if transfer == "rgb-quantile" else "hsd"
+    def batches(tiles):
+        return [tiles[i:i + batch] for i in range(0, len(tiles), batch)]
 
-    def stats(hsd):
-        return accumulate_template_stats(
-            flow, gmm, cfg, params, spectral,
-            [hsd[i:i + batch] for i in range(0, len(hsd), batch)],
-            return_cov=full, return_quantiles=quant, quantile_space=q_space)
-
-    t_stats = stats(tmpl_hsd)
+    norm.fit(batches(tmpl))
     slide, _ = _open(src_path)
     try:
         W, H = slide.level_size(level)
@@ -528,32 +516,14 @@ def flow_normalize_slide(
         kept = src_tiles[src_xy[:, 0] >= 0]
         if len(kept):
             src_tiles = kept
-        s_stats = stats(rgb_to_hsd(torch.from_numpy(
+        norm.fit_source(batches(torch.from_numpy(
             np.ascontiguousarray(src_tiles)).to(dev)))
-        perm = (color_eval.match_classes_by_usage(s_stats.usage,
-                                                  t_stats.usage)
-                if class_match else None)
 
         def recolor(batch_u8, _bi):
             # The JAX package folds the batch index into a key per batch for
             # the logdet's probes; gamma never reads them, and the
             # gamma-only route draws none, so no per-batch generator.
-            hsd = rgb_to_hsd(batch_u8)
-            gamma = encode_gamma(flow, gmm, params, spectral, hsd)
-            if quant:
-                # rgb-quantile maps the float-RGB rendering the curves were
-                # accumulated over.
-                xq = hsd if q_space == "hsd" else hsd_to_rgb(hsd)
-                return color_eval.image_dist_transform_quantile(
-                    xq, gamma, s_stats.quantiles, t_stats.quantiles,
-                    perm=perm, space=q_space)
-            if full:
-                return color_eval.image_dist_transform_full(
-                    hsd, gamma, s_stats.mu, s_stats.cov, t_stats.mu,
-                    t_stats.cov, perm=perm)
-            return color_eval.image_dist_transform(
-                hsd, gamma, s_stats.mu, s_stats.sigma, t_stats.mu,
-                t_stats.sigma, perm=perm)
+            return norm.transform(batch_u8)
 
         canvas, n_tiles = _stream_canvas(
             slide, level, tile, batch, W, H, recolor, progress,
