@@ -28,6 +28,11 @@ the card, on uint8 H&E images (random synthetic images from a seed):
   estimate, then K7 on the whole field), and the torch-only augmenters
   (HED, grayscale, RGB, HSV jitter, the geometric warp) against their CPU
   evaluation;
+* the flow's residual-branch kernels F1 (phase 38; ``kernels/flow_branch``:
+  pack, branch and gather) at the three scales of ``reference_capacity()``
+  (1, 4 and 16 channels at 256x256, 128x128 and 64x64, hidden 128, kernels
+  3-1-3), 64 tiles each: against their plain version, a second run, and
+  timed against it and against ``x + lipschitz_apply`` (cuDNN);
 * whole-slide deployment (phases 41-44): ``normalize_slide`` on a
   16,384x16,384 synthetic WSIRAW slide (4,096 tiles of 256x256) in slide
   mode (K3 once per batch of 64), timed by parts (fit, stream, pyramid,
@@ -51,7 +56,9 @@ the card, on uint8 H&E images (random synthetic images from a seed):
   4096x4096 in slide mode (K3) and tile mode (K1) against the call without
   a mesh;
 * the flow + GMM colour model and its trainer (phases 48-51; no kernel of
-  K1-K10 runs there, the convolutions are cuDNN's in float32): a small
+  K1-K10 runs there: training's convolutions are cuDNN's in float32, and
+  the forward with its log-determinant skipped and autograd off runs its
+  residual branches on F1 where their shapes allow): a small
   flow on the card against the CPU with the same weights and probes (z,
   delta_logp, the loss, the gradients, one step, the inverse);
   ``reference_capacity()`` (502,855 parameters, 256x256, batch 8 tiles of
@@ -66,7 +73,9 @@ the card, on uint8 H&E images (random synthetic images from a seed):
   6 steps, then ``--resume``;
 * the colour model's deployment and evaluation (phases 52-56; no kernel
   of K1-K10 either: gamma from the flow's forward with the logdet
-  skipped): ``validate`` with each of the six transfers for the small
+  skipped, the capacity model's 15 residual branches an encode on F1,
+  counted over phases 48-56): ``validate`` with each of the six transfers
+  for the small
   flow on the card against the CPU; at ``reference_capacity()`` from the
   10-step checkpoint, its deploy pass and recolour step by CUDA events,
   peak memory, the gamma-only route against ``encode``'s gamma and a
@@ -140,7 +149,10 @@ on phase 67's demo and notebook (``example_launches``),
 and ``bound_ms``, the least time the card
 could take for the same work (the larger of its bytes over 3.35 TB/s and
 its float32 operations over 67 TFLOP/s, counted from the shapes of the
-timed call and the tissue share of its inputs); the last line is
+timed call and the tissue share of its inputs). F1's entry is for one
+deploy encode's 15 branches (5 a scale), its launches those of phases
+48-56, its ``library_ms`` the branches' ``x + lipschitz_apply``; the last
+line is
 ``{"ok": true, "device": {...}}``. Any failure raises and the script exits
 non-zero; without a CUDA device it exits non-zero and prints no result.
 Imports neither jax nor the JAX package.
@@ -708,6 +720,82 @@ def k5_plan_text(x) -> str:
     return (f"K5 plan for {x.shape[0]} tiles of {x.shape[1] * x.shape[2]} px "
             f"on {slots} block slots: G={p.g} blocks of 512 threads per "
             f"tile, {p.slice} px per block")
+
+
+# ---- The flow's residual-branch kernels F1 (phase 38) ------------------------
+# reference_capacity()'s scales (channels, side), its hidden width and blocks
+# per scale; the deploy batch of the benchmark's flow cell.
+F1_SCALES = ((1, 256), (4, 128), (16, 64))
+F1_HIDDEN, F1_BLOCKS, F1_BATCH = 128, 5, 64
+
+
+def flow_branch_phase(smi) -> dict:
+    """Phase 38: F1 (``kernels/flow_branch.py``) at each scale of
+    ``reference_capacity()`` on ``F1_BATCH`` tiles, autograd off, TF32 off:
+    against its plain version (largest gap over the largest value within
+    1e-5: the same float32 products summed in another order), a second run
+    byte for byte, and timed in turns with the plain version, then
+    ``x + lipschitz_apply`` (the model's cuDNN route), beside the branch's
+    least time, its convolutions' operations over 67 TFLOP/s. Returns F1's
+    ``kernels`` entry for one deploy encode (``F1_BLOCKS`` branches a
+    scale); :func:`run` fills in its launches."""
+    from stainlib_tpu_torch.kernels import flow_branch as fb
+    from stainlib_tpu_torch.models.flow_layers import lipschitz_apply
+
+    assert not (torch.backends.cuda.matmul.allow_tf32
+                or torch.backends.cudnn.allow_tf32)
+    hid, scales = F1_HIDDEN, []
+    for c, side in F1_SCALES:
+        g = torch.Generator().manual_seed(SEED + c)
+        weights = []
+        for (o, i), k in zip([(hid, c), (hid, hid), (c, hid)], (3, 1, 3)):
+            w = torch.randn((o, i, k, k), generator=g) / (i * k * k) ** 0.5
+            b = torch.randn((o,), generator=g) * 0.1
+            weights.append((w.cuda(), b.cuda()))
+        x = torch.randn((F1_BATCH, c, side, side), generator=g).cuda()
+        with torch.inference_mode():
+            before = fb.launches
+            got = fb.flow_branch(x, weights)
+            assert fb.launches == before + 1
+            want = fb.flow_branch_plain(x, weights)
+            err = float((got - want).abs().max())
+            rel = err / float(want.abs().max())
+            assert rel <= 1e-5, (c, side, rel)
+            assert torch.equal(fb.flow_branch(x, weights), got), (c, side)
+            del got, want
+            (ka, kb), (pa, pb) = time_pair(
+                lambda: fb.flow_branch(x, weights),
+                lambda: fb.flow_branch_plain(x, weights))
+            lib = time_ms(lambda: x + lipschitz_apply(x, weights))
+        ops = 2 * F1_BATCH * side * side * (9 * c * hid + hid * hid
+                                            + hid * 9 * c)
+        row = dict(c=c, side=side, max_abs_err=err, max_rel_err=rel,
+                   ms=min(ka, kb), plain_ms=min(pa, pb), library_ms=lib,
+                   bound_ms=ops / F32_OPS_PER_S * 1e3)
+        scales.append(row)
+        log(38, f"F1 flow_branch B={F1_BATCH} c={c} {side}^2, hidden {hid}, "
+                f"3-1-3: max |kernel - plain| {err:.3e} = {rel:.3e} of the "
+                f"largest value (gate 1e-5), rerun identical; median of "
+                f"{REPS} CUDA-event runs (plain, kernel, kernel, plain): "
+                f"kernel {ka:.3f}/{kb:.3f} ms, plain {pa:.3f}/{pb:.3f} ms, "
+                f"x + lipschitz_apply {lib:.3f} ms; bound "
+                f"{row['bound_ms']:.3f} ms ({ops / 1e9:.1f} GFLOP at 67 "
+                f"TFLOP/s), {row['bound_ms'] / row['ms']:.1%} of it; card "
+                f"'{smi}'")
+        del x, weights
+        torch.cuda.empty_cache()
+
+    def encode(key):
+        return F1_BLOCKS * sum(r[key] for r in scales)
+
+    return dict(name="flow_branch", route="cuda",
+                source="stainlib_tpu_torch/kernels/csrc/flow_branch.cu",
+                replaces=None, launches=None,
+                max_abs_err=max(r["max_abs_err"] for r in scales),
+                max_rel_err=max(r["max_rel_err"] for r in scales),
+                ms=encode("ms"), plain_ms=encode("plain_ms"),
+                bound_ms=encode("bound_ms"), bound_by="operations",
+                library_ms=encode("library_ms"), scales=scales)
 
 
 def parent_phases() -> None:
@@ -1404,7 +1492,8 @@ def mesh_phases(dev, smi, work, big, mid, target, drive, grid_tiles,
 # ---- Phases 48-51: the flow + GMM colour model and its trainer ------------
 # No kernel of K1-K10 runs here: the flow's convolutions are cuDNN's
 # (float32; the package turns TF32 off), as the JAX package's are XLA's
-# outside any Pallas kernel.
+# outside any Pallas kernel, but for the residual branches of a forward
+# without its log-determinant and without autograd, which F1 computes.
 FLOW_SMALL = dict(image_size=16, n_scales=2, blocks_per_scale=2, hidden=8,
                   n_power_series=3, lr=1e-3, warmup_iters=0)
 FLOW_BATCH, FLOW_STEPS = 8, 10  # reference_capacity() at its published batch
@@ -1448,12 +1537,14 @@ def flow_phases(dev, smi, work: Path, big: str) -> dict:
     replayed for determinism and resumed from a checkpoint; 50,
     ``bench.py --config flow``'s shape; 51, ``scripts/torch_train_flow.py``
     on the 16,384^2 slide of phase 41 with its polygon of phase 46, then
-    ``--resume``; then phases 52-68. Returns :func:`rest_phases`' launches."""
+    ``--resume``; then phases 52-68. Returns :func:`rest_phases`' launches
+    and F1's over phases 48-56 (``F1_flow``)."""
     from torch.func import functional_call
     from torch.profiler import ProfilerActivity, profile
     from torch.utils._pytree import tree_map
 
     from stainlib_tpu_torch.data import synthetic
+    from stainlib_tpu_torch.kernels import flow_branch as fb
     from stainlib_tpu_torch.models import train_flow as tf
     from stainlib_tpu_torch.ops.colorspace import rgb_to_hsd
     from stainlib_tpu_torch.utils import checkpoint as ck
@@ -1475,6 +1566,7 @@ def flow_phases(dev, smi, work: Path, big: str) -> dict:
             c, n // 4, side, side, seed=seed + c) for c in range(4)])
         return rgb[np.random.default_rng(seed).permutation(len(rgb))]
 
+    f1_before = fb.launches  # F1 over phases 48-56
     # 48. A small flow on the card against the CPU: the same converted
     # weights, the same probes. Tolerances: z atol 1e-4, delta_logp rtol
     # 1e-4, the loss rtol 1e-5 (cuDNN's convolutions round otherwise than
@@ -1683,16 +1775,24 @@ def flow_phases(dev, smi, work: Path, big: str) -> dict:
 
     # 52-56. Deployment and evaluation of the trained model.
     deploy_phases(dev, smi, work, st_c)
+    f1 = fb.launches - f1_before
+    assert f1 > 0 and f1 % 15 == 0, f1
+    log(56, f"F1 launches over phases 48-56: {f1} ({f1 // 15} deploy "
+            f"encodes of 15 residual branches at capacity; training, the "
+            f"inverse and the small flows run lipschitz_apply)")
     # 57-62. Cross-device checkpoints, the segmenter, DANN, their CLIs.
     model_phases(dev, smi, work)
     # 63-68. utils, the data CLIs, the scale drive, examples, the launcher.
-    return rest_phases(dev, smi, work, big)
+    launches = rest_phases(dev, smi, work, big)
+    launches["F1_flow"] = f1
+    return launches
 
 
 # ---- Flow deployment and evaluation (phases 52-56) --------------------------
 # No kernel of K1-K10 runs here either: gamma comes from the flow's forward
-# (cuDNN float32 convolutions) with the logdet skipped; the transfers and
-# the statistics are plain PyTorch, as the JAX package's are plain jnp.
+# with the logdet skipped (at capacity its residual branches are F1's, the
+# rest cuDNN float32 convolutions); the transfers and the statistics are
+# plain PyTorch, as the JAX package's are plain jnp.
 DEPLOY_TOL = dict(rtol=1e-5, atol=1e-6)  # template statistics, card vs CPU
 TOY_ITERS = 200
 
@@ -1749,12 +1849,14 @@ def deploy_phases(dev, smi, work: Path, small) -> None:
     from torch.utils._pytree import tree_map
 
     from stainlib_tpu_torch.data import native, synthetic
+    from stainlib_tpu_torch.kernels import flow_branch as fb
     from stainlib_tpu_torch.models import train_flow as tf
     from stainlib_tpu_torch.models import validate_flow as vf
     from stainlib_tpu_torch.models.sampling import (
         flow_inverse, sample_flow, save_sample_grid)
     from stainlib_tpu_torch.models.toy import (
         ToyConfig, ToyResFlow, sample_toy, train_toy)
+    from stainlib_tpu_torch.normalization import flow as nflow
     from stainlib_tpu_torch.normalization import slide as sl
     from stainlib_tpu_torch.ops.colorspace import rgb_to_hsd
     from stainlib_tpu_torch.utils import checkpoint as ck
@@ -1827,15 +1929,19 @@ def deploy_phases(dev, smi, work: Path, small) -> None:
     params, spectral = state.ema.params, state.spectral
     assert state.step == FLOW_STEPS, state.step
     assert n_params(params) == FLOW_CAPACITY_PARAMS, n_params(params)
+    before = fb.launches
     g_only = vf.encode_gamma(flow, gmm, params, spectral, test[0])
+    n_f1 = fb.launches - before
+    assert n_f1 == cfg.n_scales * cfg.blocks_per_scale == 15, n_f1
     _, _, g_enc = tf.encode(flow, gmm, params, spectral, cfg, test[0],
                             generator=torch.Generator(dev).manual_seed(SEED))
     assert torch.equal(g_only, g_enc.permute(0, 2, 3, 1)), (
         "the gamma-only route differs from encode's gamma")
     log(53, f"reference_capacity() restored at step {state.step} (EMA "
             f"weights, {n_params(params):,} parameters): the gamma-only "
-            f"route (logdet skipped) equals encode's gamma bit for bit on "
-            f"a batch of {B8} tiles of {S}^2")
+            f"route (logdet skipped; F1 launches {n_f1}, one per residual "
+            f"branch) equals encode's gamma bit for bit on a batch of {B8} "
+            f"tiles of {S}^2")
     del g_enc
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1930,8 +2036,10 @@ def deploy_phases(dev, smi, work: Path, small) -> None:
 
         write = (_timed(parts, "write", sl.write_tiff_pyramid) if tiff
                  else (lambda *a, **k: None))
-        with _patched(vf, accumulate_template_stats=_timed(
-                parts, "stats", vf.accumulate_template_stats)), \
+        # flow_normalize_slide's statistics are FlowNormalizer's, which
+        # looks the function up in its own module.
+        with _patched(nflow, accumulate_template_stats=_timed(
+                parts, "stats", nflow.accumulate_template_stats)), \
                 _patched(sl, _stream_canvas=stream,
                          build_pyramid=_timed(parts, "pyramid",
                                               sl.build_pyramid),
@@ -3646,6 +3754,9 @@ def run(dev) -> int:
             f"max={rf_card_cpu[0]} u8, share differing="
             f"{rf_card_cpu[1]:.3e}, share>1={rf_card_cpu[2]:.3e} (phase 27)")
 
+    # ---- F1: the flow's residual-branch kernels ---------------------------
+    f1 = flow_branch_phase(smi)
+
     # ---- This tree against the parent's, where it is unpacked beside it
     parent_phases()
 
@@ -3694,7 +3805,9 @@ def run(dev) -> int:
             f"masked passes)")
     for k in kernels:
         k.update(bound(*shapes[k["name"]]), library_ms=None)
-    assert len(kernels) == 10, [k["name"] for k in kernels]
+    f1["launches"] = slide_launches["F1_flow"]
+    kernels.append(f1)
+    assert len(kernels) == 11, [k["name"] for k in kernels]
 
     log(71, f"the whole run, phases 1-71: "
             f"{time.perf_counter() - t_run:.1f} s")

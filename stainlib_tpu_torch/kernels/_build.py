@@ -120,6 +120,16 @@ _ARGTYPES = {
         _ptr, _i32, _i32, _i32,  # lin, batch, n_pix, planar
         _i32, _i32,  # G, slice
         _f32, _f32, _f32, _ptr],  # rank_lo, frac, 1 - frac, stream
+    "flow_branch_launch": [
+        _i32, _ptr, _ptr, _ptr,  # device, y, w1, b1
+        _ptr, _ptr, _ptr,  # w2, b2, w3
+        _ptr, _i32, _ptr,  # packed weights, their floats, taps out
+        _i32, _i32, _i32, _i32, _i32,  # batch, c, hidden, h, w
+        _ptr],  # stream
+    "flow_gather_launch": [
+        _i32, _ptr, _ptr, _ptr, _ptr,  # device, y, taps, b3, out
+        _i32, _i32, _i32, _i32,  # batch, c, h, w
+        _ptr],  # stream
 }
 
 

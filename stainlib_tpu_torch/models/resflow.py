@@ -25,6 +25,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from stainlib_tpu_torch.kernels import flow_branch
 from stainlib_tpu_torch.models.flow_layers import (
     ActNorm,
     LipschitzNet,
@@ -58,6 +59,8 @@ class IResBlock(nn.Module):
         self.n_probes = n_probes
         self.n_fixed_point_iters = n_fixed_point_iters
         self.remat_logdet = remat_logdet
+        # Whether the last forward computed x + g(x) with the branch kernels.
+        self.fused = False
         self.g = LipschitzNet(channels, hidden=hidden, n_layers=n_layers,
                               coeff=coeff, input_hw=input_hw,
                               kernel_sizes=kernel_sizes, device=device,
@@ -66,9 +69,15 @@ class IResBlock(nn.Module):
     def forward(self, x, probe=None, generator=None,
                 exact_logdet: bool = False, skip_logdet: bool = False):
         """``probe``: (n_probes, *x.shape) Rademacher draws; drawn from
-        ``generator`` when None."""
+        ``generator`` when None. With ``skip_logdet``, autograd off and a
+        CUDA input of the shapes ``kernels.flow_branch`` is written for
+        (the deploy encode), ``x + g(x)`` is its kernels'."""
         weights = self.g.weights()
-        y = x + lipschitz_apply(x, weights)
+        self.fused = skip_logdet and flow_branch.eligible(x, weights)
+        if self.fused:
+            y = flow_branch.flow_branch(x, weights)
+        else:
+            y = x + lipschitz_apply(x, weights)
         if skip_logdet:
             return y, torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
         if exact_logdet:

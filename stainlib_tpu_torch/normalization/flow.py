@@ -24,7 +24,11 @@ records): ``stain.flow`` around each ``transform``, with
 ``stain.flow.encode`` and ``stain.flow.transfer`` in it; ``stain.flow.fit``
 around ``fit`` and ``fit_source``. ``conv_flops_per_call`` counts, from
 shapes, the float32 operations of every convolution of the last
-``transform`` (flow and GMM head, ``2 Cin Cout k^2`` per output pixel).
+``transform`` (flow and GMM head, ``2 Cin Cout k^2`` per output pixel);
+``fused_branches_per_call`` counts the flow's residual branches that the
+hand-written kernels (``kernels.flow_branch``) computed in it, as each
+``IResBlock`` records its last forward: all 15 of the capacity model's on
+the card, none on the CPU.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from typing import Optional, Sequence, Union
 import torch
 
 from stainlib_tpu_torch.models import color_eval
+from stainlib_tpu_torch.models.resflow import IResBlock
 from stainlib_tpu_torch.models.train_flow import FlowConfig, build_models
 from stainlib_tpu_torch.models.validate_flow import (
     TemplateStats, accumulate_template_stats, encode_latent, transfer_batch)
@@ -88,6 +93,7 @@ class FlowNormalizer:
         self._perm = None
         self.latent: Optional[torch.Tensor] = None
         self.conv_flops_per_call = 0
+        self.fused_branches_per_call = 0
 
     def _stats(self, tiles_u8: Tiles) -> TemplateStats:
         """Statistics of uint8 tiles (N, S, S, 3), or of a sequence of such
@@ -147,4 +153,6 @@ class FlowNormalizer:
                                      source=self.source)
         self.conv_flops_per_call = b * conv_flops(
             self.params, self.cfg.n_scales, h, w)
+        self.fused_branches_per_call = sum(
+            m.fused for m in self._flow.modules() if isinstance(m, IResBlock))
         return out
